@@ -1,0 +1,83 @@
+"""Build and load the port's CUDA kernels.
+
+Each ``csrc/*.cu`` file has a plain C interface and becomes its own shared
+library, compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the repository
+root and loaded with ``ctypes``. All sources compile in parallel (one
+``nvcc`` process each). A library newer than its source is reused. Nothing
+here runs at import time: the first wrapper that launches a kernel builds it.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
+SOURCES = ("gallery_topk", "shear_rotate")
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+_loaded: dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(path).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels build only where the CUDA toolkit is")
+    return path
+
+
+def _lib_path(name: str) -> Path:
+    return BUILD_DIR / f"lib{name}.so"
+
+
+def _stale(name: str) -> bool:
+    lib = _lib_path(name)
+    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+
+
+def build(names: tuple[str, ...] = SOURCES, force: bool = False) -> float:
+    """Compile the named kernels (all at once, one ``nvcc`` each); returns
+    the wall seconds. The ptxas report of each goes to ``build/<name>.log``."""
+    todo = [n for n in names if force or _stale(n)]
+    if not todo:
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    t0 = time.perf_counter()
+    procs = {}
+    for n in todo:
+        tmp = BUILD_DIR / f"lib{n}.{os.getpid()}.tmp.so"
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{n}.cu")]
+        procs[n] = (tmp, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for n, (tmp, proc) in procs.items():
+        out, _ = proc.communicate()
+        (BUILD_DIR / f"{n}.log").write_text(out)
+        if proc.returncode != 0:
+            failed.append(f"{n}.cu (exit {proc.returncode}):\n{out}")
+        else:
+            os.replace(tmp, _lib_path(n))
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return time.perf_counter() - t0
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for kernel ``name``, built first if needed."""
+    if name not in _loaded:
+        build((name,))
+        _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
+    return _loaded[name]
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaGetLastError()`` code returned by a launch."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with cudaError {err}")

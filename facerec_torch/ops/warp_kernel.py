@@ -1,0 +1,65 @@
+"""Wrapper of the 2-shear rotation kernel ``csrc/shear_rotate.cu``.
+
+Counterpart of ``facerec_tpu/ops/pallas_warp.py``. As there, the per-line
+tap weights are computed outside the kernel, in PyTorch, from the same f32
+arithmetic as the plain version (``warp_fast._shear_lines``). Because the
+coarse slots are one-hot and only two fine taps carry weight, a line's
+weights reduce to one integer offset ``8*c + fb`` and the two bf16 weights
+``1 - ff`` and ``ff`` (the values ``_shear`` rounds its tap weights to).
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from facerec_torch import build
+from facerec_torch.ops.warp_fast import COARSE, _shear_lines, _shear_params, rotate_patches
+
+
+def line_taps(slope: torch.Tensor, const: torch.Tensor, p: int, k_lo: int, k_hi: int
+              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per line: int32 offset [N, P] and bf16 weights [N, P, 2]."""
+    c, fb, ff = _shear_lines(slope, const, p, k_lo, k_hi)
+    offset = (c * COARSE + fb).to(torch.int32)
+    weights = torch.stack([1.0 - ff, ff], dim=-1).to(torch.bfloat16)
+    return offset.contiguous(), weights.contiguous()
+
+
+def rotate_patches_kernel(patches: torch.Tensor, angles: torch.Tensor,
+                          centers: torch.Tensor, out_size: int,
+                          max_angle_deg: float = 15.0) -> torch.Tensor:
+    """Drop-in for ``warp_fast.rotate_patches``: the CUDA kernel on CUDA
+    tensors, the plain version on CPU tensors. patches [N, P, P, C],
+    angles [N], centres [N, 2] -> [N, out, out, C] in the patch dtype."""
+    if not patches.is_cuda:
+        return rotate_patches(patches, angles, centers, out_size, max_angle_deg)
+    n, p, p2, ch = patches.shape
+    if p != p2 or not 0 < out_size <= p:
+        raise ValueError(f"patches {tuple(patches.shape)} cannot give a {out_size} crop")
+    max_rad = math.radians(max_angle_deg)
+    phi = torch.clamp(angles.float(), -max_rad, max_rad)
+    sy, cy, sx, cx, ky, kx = _shear_params(phi, centers.float(), p, max_rad)
+    oy, wy = line_taps(sy, cy, p, -ky, ky)
+    ox, wx = line_taps(sx, cx, p, -kx, kx)
+    src = patches.to(torch.bfloat16).contiguous()
+    out = torch.empty((n, out_size, out_size, ch), dtype=torch.bfloat16, device=src.device)
+    err = _launcher()(src.data_ptr(), oy.data_ptr(), wy.data_ptr(), ox.data_ptr(),
+                      wx.data_ptr(), n, p, out_size, ch, out.data_ptr(),
+                      torch.cuda.current_stream(src.device).cuda_stream)
+    build.check(err, "shear_rotate")
+    rotate_patches_kernel.launches += 1
+    return out.to(patches.dtype)
+
+
+rotate_patches_kernel.launches = 0
+
+
+def _launcher():
+    fn = build.library("shear_rotate").shear_rotate_launch
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, p, p]
+    fn.restype = i
+    return fn

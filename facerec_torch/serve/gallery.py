@@ -1,0 +1,142 @@
+"""Reference-face gallery store (counterpart of ``facerec_tpu/serve/gallery.py``).
+
+Host-side names around a capacity-padded, device-resident embedding matrix.
+Entries occupy a valid prefix of ``capacity`` (compacted on delete), so the
+matching kernel's ``count`` mask stays a prefix. ``count`` also lives on the
+device as an int32 scalar, which the match kernel reads from device memory:
+the serve step needs no host read for it. Persistence keeps the on-disk
+contract of the JAX package (a pickle mapping name -> f32 embedding, plus
+one JPEG per reference face), so a gallery saved by either package loads in
+the other. The port updates the matrix in place.
+"""
+
+from __future__ import annotations
+
+import pickle
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from facerec_torch import resolve_device
+from facerec_torch.config import FACE_REFERENCES_DIR
+
+
+def _dtype(dtype: torch.dtype | str) -> torch.dtype:
+    return getattr(torch, dtype) if isinstance(dtype, str) else dtype
+
+
+class GalleryStore:
+    def __init__(self, capacity: int = 1024, dim: int = 512,
+                 dtype: torch.dtype | str = torch.float32,
+                 device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.capacity = capacity
+        self.dim = dim
+        self.dtype = _dtype(dtype)
+        self.embeddings = torch.zeros((capacity, dim), dtype=self.dtype, device=self.device)
+        self.names: list[str] = []
+        self._count_dev = torch.zeros((), dtype=torch.int32, device=self.device)
+
+    @property
+    def count(self) -> int:
+        return len(self.names)
+
+    @property
+    def count_device(self) -> torch.Tensor:
+        """Device-resident valid-prefix length (int32 scalar)."""
+        return self._count_dev
+
+    def _set_count(self) -> None:
+        self._count_dev.fill_(self.count)
+
+    def add(self, name: str, embedding: np.ndarray) -> int:
+        if self.count >= self.capacity:
+            raise ValueError(f"gallery full (capacity {self.capacity})")
+        emb = np.asarray(embedding, np.float32).reshape(-1)
+        if emb.shape[0] != self.dim:
+            raise ValueError(f"expected dim {self.dim}, got {emb.shape[0]}")
+        emb = emb / max(np.linalg.norm(emb), 1e-12)
+        self.embeddings[self.count] = torch.from_numpy(emb).to(self.device, self.dtype)
+        self.names.append(name)
+        self._set_count()
+        return self.count - 1
+
+    def add_many(self, names: list[str], embeddings: np.ndarray) -> list[int]:
+        """Bulk enrollment: normalised on the host, one upload."""
+        if not names:
+            return []
+        embs = np.asarray(embeddings, np.float32).reshape(len(names), -1)
+        if embs.shape[1] != self.dim:
+            raise ValueError(f"expected dim {self.dim}, got {embs.shape[1]}")
+        if self.count + len(names) > self.capacity:
+            raise ValueError(
+                f"gallery full: {self.count}+{len(names)} > capacity {self.capacity}")
+        embs = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-12)
+        start = self.count
+        self.embeddings[start:start + len(names)] = torch.from_numpy(embs).to(
+            self.device, self.dtype)
+        self.names.extend(str(n) for n in names)
+        self._set_count()
+        return list(range(start, self.count))
+
+    def remove(self, name: str) -> bool:
+        if name not in self.names:
+            return False
+        i = self.names.index(name)
+        c = self.count
+        if i < c - 1:  # compact: shift the tail down one slot
+            self.embeddings[i:c - 1] = self.embeddings[i + 1:c].clone()
+        self.embeddings[c - 1] = 0
+        self.names.pop(i)
+        self._set_count()
+        return True
+
+    def rename(self, old: str, new: str) -> bool:
+        if old not in self.names:
+            return False
+        self.names[self.names.index(old)] = new
+        return True
+
+    def clear(self) -> None:
+        self.names.clear()
+        self.embeddings.zero_()
+        self._set_count()
+
+    def name_of(self, index: int) -> str:
+        return self.names[index] if 0 <= index < self.count else "Unknown"
+
+    # -- persistence (reference face_references/ contract) ---------------------
+    def save(self, directory: str | Path | None = None,
+             images: dict[str, np.ndarray] | None = None) -> Path:
+        d = Path(directory or FACE_REFERENCES_DIR)
+        d.mkdir(parents=True, exist_ok=True)
+        host = self.embeddings[: self.count].float().cpu().numpy()
+        refs = {n: host[i].copy() for i, n in enumerate(self.names)}
+        with (d / "face_references.pkl").open("wb") as f:
+            pickle.dump(refs, f)
+        if images:
+            from PIL import Image
+
+            for n, img in images.items():
+                Image.fromarray(np.asarray(img, np.uint8)).save(d / f"{n}.jpg")
+        return d
+
+    @classmethod
+    def load(cls, directory: str | Path | None = None, capacity: int = 1024,
+             dtype: torch.dtype | str = torch.float32,
+             device: str | torch.device | None = None) -> "GalleryStore":
+        """Load a gallery this package or ``facerec_tpu`` saved (the pickle
+        is unpickled: load only galleries you wrote)."""
+        d = Path(directory or FACE_REFERENCES_DIR)
+        pkl = d / "face_references.pkl"
+        if not pkl.exists():
+            return cls(capacity=capacity, dtype=dtype, device=device)
+        with pkl.open("rb") as f:
+            refs = pickle.load(f)
+        if not refs:
+            return cls(capacity=capacity, dtype=dtype, device=device)
+        rows = [np.asarray(e, np.float32).reshape(-1) for e in refs.values()]
+        store = cls(capacity=capacity, dim=rows[0].shape[0], dtype=dtype, device=device)
+        store.add_many([str(n) for n in refs], np.stack(rows))
+        return store

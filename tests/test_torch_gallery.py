@@ -1,0 +1,123 @@
+"""Parity of the port's match stage with the JAX package on the CPU:
+``facerec_torch.ops.gallery`` against ``gallery_topk_xla`` and
+``facerec_torch.serve.gallery.GalleryStore`` against the JAX store, including
+the on-disk format in both directions."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from facerec_torch.ops.gallery import cosine_to_euclidean, gallery_topk, gallery_topk_plain
+from facerec_torch.serve.gallery import GalleryStore
+from facerec_tpu.ops.gallery import cosine_to_euclidean as jax_c2e
+from facerec_tpu.ops.gallery import gallery_topk_xla
+from facerec_tpu.serve.gallery import GalleryStore as JaxGalleryStore
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+def _f32_case():
+    """The inputs of tests/test_ops.py::test_gallery_topk_pallas_matches_xla."""
+    rng = np.random.default_rng(0)
+    q = rng.normal(size=(17, 256)).astype(np.float32)
+    g = rng.normal(size=(1024, 256)).astype(np.float32)
+    g[3] = q[0] + 0.01 * rng.normal(size=256)
+    g[3 + 512] = q[0] + 0.01 * rng.normal(size=256)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    return q, g
+
+
+def _bf16_case():
+    """The inputs of tests/test_ops.py::test_gallery_topk_bf16_storage."""
+    rng = np.random.default_rng(2)
+    centers = rng.normal(size=(32, 256)).astype(np.float32)
+    g = np.repeat(centers, 32, axis=0) + 0.05 * rng.normal(size=(1024, 256)).astype(np.float32)
+    g /= np.linalg.norm(g, axis=1, keepdims=True)
+    q = centers + 0.05 * rng.normal(size=centers.shape).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    return q, g
+
+
+@pytest.mark.parametrize("dtype,atol", [("float32", 1e-4), ("bfloat16", 2e-3)])
+@pytest.mark.parametrize("count", [700, 1000, 3, 0])
+def test_gallery_topk_matches_xla(dtype, atol, count):
+    q, g = _f32_case() if dtype == "float32" else _bf16_case()
+    gj = jnp.asarray(g, getattr(jnp, dtype))
+    v0, i0 = gallery_topk_xla(jnp.asarray(q), gj, count, k=5)
+    gt = torch.from_numpy(np.array(gj.astype(jnp.float32))).to(getattr(torch, dtype))
+    v1, i1 = gallery_topk(torch.from_numpy(q), gt, torch.tensor(count, dtype=torch.int32), k=5)
+    v0, i0 = np.asarray(v0), np.asarray(i0)
+    valid = np.arange(5) < min(count, 5)
+    np.testing.assert_array_equal(i1.numpy()[:, valid], i0[:, valid])
+    np.testing.assert_allclose(v1.numpy()[:, valid], v0[:, valid], atol=atol, rtol=0)
+    # the masked slots too: -1e30 at the lowest masked rows, as lax.top_k
+    np.testing.assert_array_equal(i1.numpy(), i0)
+    np.testing.assert_array_equal(v1.numpy()[:, ~valid], v0[:, ~valid])
+    assert int(i1.max()) < max(count, 5)
+    np.testing.assert_allclose(cosine_to_euclidean(v1).numpy()[:, valid],
+                               np.asarray(jax_c2e(jnp.asarray(v0)))[:, valid], atol=1e-3)
+
+
+def test_gallery_topk_ties_go_to_lower_index():
+    g = np.zeros((64, 8), np.float32)
+    g[[5, 9, 40, 41, 63], 0] = 1.0  # five identical best rows
+    q = np.eye(8, dtype=np.float32)[:2]
+    _, i0 = gallery_topk_xla(jnp.asarray(q), jnp.asarray(g), 64, k=5)
+    _, i1 = gallery_topk_plain(torch.from_numpy(q), torch.from_numpy(g), 64, k=5)
+    np.testing.assert_array_equal(i1.numpy(), np.asarray(i0))
+    np.testing.assert_array_equal(i1.numpy()[0], [5, 9, 40, 41, 63])
+
+
+def test_gallery_topk_cpu_takes_plain_version():
+    q, g = _f32_case()
+    before = gallery_topk.launches
+    v1, i1 = gallery_topk(torch.from_numpy(q), torch.from_numpy(g), 700, k=5)
+    v2, i2 = gallery_topk_plain(torch.from_numpy(q), torch.from_numpy(g), 700, k=5)
+    assert gallery_topk.launches == before
+    assert torch.equal(i1, i2) and torch.equal(v1, v2)
+
+
+def _enroll_both(dtype):
+    rng = np.random.default_rng(4)
+    embs = rng.normal(size=(6, 32)).astype(np.float32)
+    jax_store = JaxGalleryStore(capacity=8, dim=32, dtype=getattr(jnp, dtype))
+    port = GalleryStore(capacity=8, dim=32, dtype=dtype, device="cpu")
+    for store in (jax_store, port):
+        store.add_many([f"p{i}" for i in range(4)], embs[:4])
+        store.add("p4", embs[4])
+        store.add("p5", embs[5])
+        assert store.remove("p1") and not store.remove("nobody")
+        assert store.rename("p2", "q2") and not store.rename("nobody", "x")
+    return jax_store, port
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gallery_store_matches_jax(dtype):
+    jax_store, port = _enroll_both(dtype)
+    assert port.names == jax_store.names == ["p0", "q2", "p3", "p4", "p5"]
+    assert port.count == jax_store.count == int(port.count_device) == 5
+    assert port.count_device.dtype == torch.int32
+    np.testing.assert_allclose(port.embeddings.float().numpy(),
+                               np.asarray(jax_store.embeddings.astype(jnp.float32)), atol=1e-6)
+    assert port.name_of(1) == "q2" and port.name_of(5) == "Unknown" and port.name_of(-1) == "Unknown"
+    port.clear()
+    assert port.count == 0 and int(port.count_device) == 0 and not port.embeddings.any()
+
+
+def test_gallery_save_load_both_directions(tmp_path):
+    jax_store, port = _enroll_both("float32")
+    port.save(tmp_path / "from_port")
+    jax_store.save(tmp_path / "from_jax")
+    back_jax = JaxGalleryStore.load(tmp_path / "from_port", capacity=8)
+    back_port = GalleryStore.load(tmp_path / "from_jax", capacity=8, device="cpu")
+    assert back_jax.names == back_port.names == port.names
+    np.testing.assert_allclose(np.asarray(back_jax.embeddings), port.embeddings.numpy(), atol=1e-6)
+    np.testing.assert_allclose(back_port.embeddings.numpy(),
+                               np.asarray(jax_store.embeddings), atol=1e-6)
+    empty = GalleryStore.load(tmp_path / "missing", capacity=4, device="cpu")
+    assert empty.count == 0 and empty.embeddings.shape == (4, 512)

@@ -1,0 +1,135 @@
+"""The port's whole serve step against the JAX package's on the CPU, and the
+port's two promises: it imports nothing of JAX, and its entry points refuse
+to fall back to the CPU when no card is present."""
+
+import subprocess
+import sys
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from facerec_torch.config import ServeConfig
+from facerec_torch.data.synthetic import face_frames
+from facerec_torch.detect.mtcnn import MTCNN
+from facerec_torch.detect.weights import load_detector_params
+from facerec_torch.models.arcface import build_embedder
+from facerec_torch.serve.gallery import GalleryStore
+from facerec_torch.serve.pipeline import FacePipeline, FaceTracker, calc_iou
+from facerec_tpu.config import ServeConfig as JaxServeConfig
+from facerec_tpu.detect.mtcnn import MTCNN as JaxMTCNN
+from facerec_tpu.detect.weights import load_detector_params as jax_load
+from facerec_tpu.models import get_model
+from facerec_tpu.serve.pipeline import FacePipeline as JaxFacePipeline
+from facerec_tpu.serve.pipeline import FaceTracker as JaxFaceTracker
+from facerec_tpu.serve.pipeline import calc_iou as jax_calc_iou
+
+REPO = Path(__file__).resolve().parent.parent
+HW = (120, 160)
+CFG = dict(max_faces=2, gallery_capacity=16, top_k=3, embed_size=64, detection_threshold=0.0,
+           gallery_dtype="float32")
+DET = dict(min_face_size=40, max_faces=2, k_pnet=16, k_rnet=8, input_range="255")
+
+
+@pytest.fixture(autouse=True)
+def _one_thread():
+    torch.set_num_threads(1)
+
+
+@pytest.fixture(scope="module")
+def both():
+    """The same frames through the jitted JAX step and the port's step, with
+    the same detector weights, embedder weights and gallery."""
+    frames = face_frames(2, HW, 1, np.random.default_rng(0))
+    model = get_model("arcface", num_classes=18)
+    v = model.init({"params": jax.random.key(1), "dropout": jax.random.key(2)},
+                   jnp.zeros((1, 64, 64, 3)), labels=jnp.zeros(1, jnp.int32), train=True)
+    evars = {"params": v["params"], "batch_stats": v["batch_stats"]}
+    jpipe = JaxFacePipeline(JaxServeConfig(**CFG), HW, JaxMTCNN(HW, **DET), jax_load(),
+                            lambda ev, x: model.apply(ev, x, method="embed"),
+                            embed_variables=evars)
+    tpipe = FacePipeline(ServeConfig(**CFG), HW,
+                         MTCNN(HW, **DET, device="cpu").load_jax_params(load_detector_params()),
+                         build_embedder(jax.tree_util.tree_map(np.asarray, evars),
+                                        dtype=torch.float32, device="cpu"),
+                         device="cpu")
+    # gallery: noisy copies of the faces JAX embeds, among random identities
+    probe = np.asarray(jpipe.process(frames).embeddings).reshape(-1, 512)
+    rng = np.random.default_rng(7)
+    gal = rng.normal(size=(10, 512)).astype(np.float32)
+    gal[[2, 7, 4, 9]] = probe + 0.02 * rng.normal(size=probe.shape)
+    names = [f"id{i}" for i in range(10)]
+    jpipe.gallery.add_many(names, gal)
+    tpipe.gallery.add_many(names, gal)
+    return frames, jpipe, tpipe
+
+
+def test_serve_step_matches_jax(both):
+    frames, jpipe, tpipe = both
+    ref = jax.device_get(jpipe.process(frames))
+    got = tpipe.process(frames)
+    valid = np.asarray(ref.valid)
+    assert valid.sum() >= 2
+    np.testing.assert_array_equal(got.valid.numpy(), valid)
+    e0, e1 = np.asarray(ref.embeddings)[valid], got.embeddings.numpy()[valid]
+    assert np.all(np.sum(e0 * e1, axis=-1) > 0.999)
+    np.testing.assert_array_equal(got.match_indices.numpy()[valid][:, 0],
+                                  np.asarray(ref.match_indices)[valid][:, 0])
+    np.testing.assert_allclose(got.match_scores.numpy()[valid], np.asarray(ref.match_scores)[valid],
+                               atol=2e-3)
+    np.testing.assert_array_equal(got.is_match.numpy(), np.asarray(ref.is_match))
+    assert got.match_distances.shape == (2, 2, 3) and got.embeddings.shape == (2, 2, 512)
+
+
+def test_identify_matches_jax(both):
+    frames, jpipe, tpipe = both
+    ref, got = jpipe.identify(frames), tpipe.identify(frames)
+    assert [[f["name"] for f in fr] for fr in got] == [[f["name"] for f in fr] for fr in ref]
+    assert all(f["name"] != "Unknown" for fr in got for f in fr)
+    assert got[0][0]["embedding"].shape == (512,)
+
+
+def test_tracker_and_iou_match_jax():
+    a, b, c = [0, 0, 10, 10], [5, 5, 15, 15], [40, 40, 50, 50]
+    assert calc_iou(a, b) == jax_calc_iou(a, b) and calc_iou(a, c) == 0.0
+    t, jt = FaceTracker(), JaxFaceTracker()
+    for boxes in ([a, c], [c, [1, 1, 11, 11]], [b]):
+        assert t.update(boxes) == jt.update(boxes)
+
+
+def test_port_imports_no_jax():
+    """Every facerec_torch module and chip_smoke import with jax, flax and
+    facerec_tpu made unimportable."""
+    mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
+                  for p in (REPO / "facerec_torch").rglob("*.py"))
+    mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
+    code = ("import sys, importlib\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'facerec_tpu'):\n"
+            "    sys.modules[name] = None\n"
+            f"for m in {mods!r}:\n"
+            "    importlib.import_module(m)\n"
+            "leaked = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'facerec_tpu')"
+            " and sys.modules[m] is not None]\n"
+            "assert not leaked, leaked\n"
+            "print(len(sys.argv) and 'ok')\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert "facerec_torch.ops.gallery" in mods and "facerec_torch.serve.pipeline" in mods
+
+
+@pytest.mark.parametrize("entry", ["pipeline", "mtcnn", "embedder", "gallery"])
+def test_entry_points_refuse_cpu_fallback(entry):
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present; the refusal is for machines without one")
+    build = {
+        "pipeline": lambda: FacePipeline(ServeConfig(**CFG), HW, None, None),
+        "mtcnn": lambda: MTCNN(HW),
+        "embedder": lambda: build_embedder(),
+        "gallery": lambda: GalleryStore(),
+    }[entry]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        build()
