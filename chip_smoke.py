@@ -6,10 +6,19 @@ Phases, each of which raises (and so exits nonzero) on failure:
 
   1. build    every CUDA kernel of the serve step from ``facerec_torch/csrc``
               (one ``nvcc`` per source, all at once);
-  2. K1       the gallery top-k kernel against its plain PyTorch version: the
-              serve shape (384 x 1024 x 512, bf16 gallery, count 512), count
-              < k, count 0, an f32 gallery, and a ragged 131,072-row gallery;
-              indices exact, values within 2e-3 (bf16) / 1e-4 (f32);
+  2. K1       the gallery top-k kernel against its plain PyTorch version fed
+              the queries as the kernel rounds them (to the gallery dtype):
+              the serve shape (384 x 1024 x 512, bf16 gallery, count 512),
+              count < k, count 0, an f32 gallery, 131,072 rows with count
+              100,003, 1,048,576 rows with count 524,287, counts at the edges
+              of the kernel's row tiles and splits, k = 1 and 32, 37 queries,
+              and identical rows on both sides of a split boundary (the lower
+              row first). Indices exact, except where the plain scores of the
+              two rows lie within 1e-5 (summation order; at most 0.1% of the
+              slots); values within 1e-5, and within 2e-3 (bf16) / 1e-4 (f32)
+              of the plain version with f32 queries. Then K1's time at
+              1,024 / 131,072 / 1,048,576 rows (counts 512 / 65,536 / 524,288)
+              beside its bound and two library yardsticks;
   3. K2       the 2-shear rotation kernel against ``rotate_patches`` at
               384 x 208 -> 160, angles up to +-15 degrees; max abs <= 1.0 and
               mean < 1e-3 on 0..255 input;
@@ -22,9 +31,14 @@ Phases, each of which raises (and so exits nonzero) on failure:
               must be found at p >= 0.6; then the same step on a small input,
               on the card and on the CPU, must agree; then faces/s after
               warm-up, timed with CUDA events, and a per-stage breakdown;
-  5. summary  one JSON line of kernels (time, plain version's time, library
-              call's time, bound, launches, error), the card's name and power
-              limit, and the result line.
+  5. serve 1M the same step with a 1,048,576-row gallery holding 524,288
+              seeded ``torch.randn`` rows enrolled on the card
+              (``GalleryStore.add_many_device``), as ``bench.py`` runs its
+              production scale: launch counts from 0, both kernels launched,
+              faces/s and the stage breakdown;
+  6. summary  one JSON line of kernels (time, plain version's time, library
+              call's time, bound, launches, error; K1 at three gallery
+              sizes), the card's name and power limit, and the result line.
 
 Exits nonzero, printing no result, when no CUDA card is present or when run
 outside a checkout of the repository.
@@ -42,13 +56,19 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 
 # H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s on
-# the CUDA cores (both kernels compute in f32).
+# the CUDA cores (K2 and K1's f32 path), dense bf16 FLOP/s on the tensor
+# cores (K1's bf16 path).
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12
+BF16_TC_FLOPS = 989e12
 
 FRAME_HW = (480, 640)
 BATCH = 48
 FACES = 8
+SERVE_ROWS = 1024  # bench.py's default gallery capacity
+MID_ROWS = 131072
+BIG_ROWS = 1 << 20  # bench.py's production gallery capacity
+MAX_NEAR_TIE_SHARE = 1e-3
 
 
 def _card() -> str:
@@ -72,47 +92,184 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS * 1e3
+def _bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
-def check_k1(dev):
-    """Phase 2. Returns (inputs at the serve shape, max abs error there)."""
+def _unit(gen, rows, dim, dev):
+    import torch
+
+    x = torch.randn(rows, dim, generator=gen, device=dev)
+    return x / x.norm(dim=1, keepdim=True)
+
+
+def _k1_case(name, q, g, count, k, tol):
+    """One K1 comparison. Returns (max abs error against the rounded-query
+    plain version, near-tie slots, valid slots)."""
     import torch
 
     from facerec_torch.ops.gallery import gallery_topk, gallery_topk_plain
 
-    g0 = torch.Generator(device=dev).manual_seed(11)
+    cnt = torch.tensor(count, dtype=torch.int32, device=q.device)
+    v1, i1 = gallery_topk(q, g, cnt, k=k)
+    v0, i0 = gallery_topk_plain(q.to(g.dtype), g, cnt, k=k)
+    vf, _ = gallery_topk_plain(q, g, cnt, k=k)
+    torch.cuda.synchronize()
+    nv = min(count, k)
+    pad_ok = torch.equal(i1[:, nv:], i0[:, nv:]) and torch.equal(v1[:, nv:], v0[:, nv:])
+    differ = i1[:, :nv] != i0[:, :nv]
+    near, gap = int(differ.sum().item()), 0.0
+    if near:
+        s1 = (q.to(g.dtype).float()[:, None, :] * g[i1[:, :nv].long()].float()).sum(-1)
+        gap = (s1 - v0[:, :nv]).abs()[differ].max().item()
+    err = (v1 - v0)[:, :nv].abs().max().item() if nv else 0.0
+    err_f = (v1 - vf)[:, :nv].abs().max().item() if nv else 0.0
+    print(f"K1 {name}: B={q.shape[0]} G={g.shape[0]} {str(g.dtype)[6:]} count={count} k={k} "
+          f"near_tie_slots={near}/{differ.numel()} (gap {gap:.3g}) masked_slots_exact={pad_ok} "
+          f"max_abs_err={err:.3g} (tol 1e-5) vs_f32_queries={err_f:.3g} (tol {tol})", flush=True)
+    if not (pad_ok and gap <= 1e-5 and err <= 1e-5 and err_f <= tol):
+        bad = differ.any(dim=1).nonzero().flatten()[:3].tolist()
+        raise AssertionError(f"K1 {name} disagrees with its plain version (rows {bad})")
+    return err, near, differ.numel()
 
-    def unit(rows, dim):
-        x = torch.randn(rows, dim, generator=g0, device=dev)
-        return x / x.norm(dim=1, keepdim=True)
 
-    q = unit(BATCH * FACES, 512)
-    g_serve = unit(1024, 512).to(torch.bfloat16)
-    g_big = unit(131072, 512).to(torch.bfloat16)
-    cases = [("serve", g_serve, 512, 2e-3), ("count<k", g_serve, 3, 2e-3),
-             ("count0", g_serve, 0, 2e-3), ("f32", g_serve.float(), 512, 1e-4),
-             ("ragged131072", g_big, 100003, 2e-3)]
-    serve_err = None
-    for name, g, count, tol in cases:
-        cnt = torch.tensor(count, dtype=torch.int32, device=dev)
-        v1, i1 = gallery_topk(q, g, cnt, k=5)
-        v0, i0 = gallery_topk_plain(q, g, cnt, k=5)
-        torch.cuda.synchronize()
-        nv = min(count, 5)
-        idx_ok = torch.equal(i1[:, :nv], i0[:, :nv])
-        err = (v1[:, :nv] - v0[:, :nv]).abs().max().item() if nv else 0.0
-        pad_ok = torch.equal(i1, i0) and torch.equal(v1[:, nv:], v0[:, nv:])
-        print(f"K1 {name}: G={g.shape[0]} {str(g.dtype)[6:]} count={count} indices_exact={idx_ok} "
-              f"masked_slots_exact={pad_ok} max_abs_err={err:.3g} (tol {tol})", flush=True)
-        if not (idx_ok and pad_ok and err <= tol):
-            bad = (i1[:, :nv] != i0[:, :nv]).any(dim=1).nonzero().flatten()[:3].tolist()
-            raise AssertionError(f"K1 {name} disagrees with its plain version (rows {bad})")
+def check_k1(dev):
+    """Phase 2. Returns (queries at the serve shape, the three timed
+    galleries by rows, max abs error at the serve shape)."""
+    import torch
+
+    from facerec_torch.ops.gallery import bf16_rows_per_split, bf16_splits, gallery_topk
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    gen = torch.Generator(device=dev).manual_seed(11)
+    q = _unit(gen, BATCH * FACES, 512, dev)
+    q37 = _unit(gen, 37, 512, dev)
+    g_serve = _unit(gen, SERVE_ROWS, 512, dev).to(torch.bfloat16)
+    g_big = _unit(gen, MID_ROWS, 512, dev).to(torch.bfloat16)
+    g_huge = torch.empty(BIG_ROWS, 512, dtype=torch.bfloat16, device=dev)
+    step = min(MID_ROWS, BIG_ROWS)  # in slices: no 2 GiB f32 temporary
+    for r in range(0, BIG_ROWS, step):
+        g_huge[r:r + step] = _unit(gen, step, 512, dev).to(torch.bfloat16)
+    # identical rows across a split boundary and a tile boundary, each the
+    # best match of one query: the lower row must come first
+    g_ties, q_ties = g_big.clone(), q.clone()
+    per = bf16_rows_per_split(100003, bf16_splits(q.shape[0], g_ties.shape[0], sms))
+    pairs = [(per - 1, per), (2 * per - 1, 2 * per), (127, 128)]
+    for n, (lo, hi) in enumerate(pairs):
+        g_ties[hi] = g_ties[lo]
+        q_ties[n] = g_ties[lo].float()
+    # one 128-row tile in every split of the bf16 kernel at 384 queries
+    split_edge = bf16_splits(q.shape[0], g_big.shape[0], sms) * 128
+    cases = [("serve", q, g_serve, 512, 5, 2e-3), ("count<k", q, g_serve, 3, 5, 2e-3),
+             ("count0", q, g_serve, 0, 5, 2e-3), ("f32", q, g_serve.float(), 512, 5, 1e-4),
+             ("ragged131072", q, g_big, 100003, 5, 2e-3),
+             ("ragged1048576", q, g_huge, BIG_ROWS // 2 - 1, 5, 2e-3),
+             *[(f"tile_edge{c}", q, g_big, c, 5, 2e-3) for c in (127, 128, 129, 256, 257)],
+             *[(f"split_edge{c}", q, g_big, c, 5, 2e-3)
+               for c in (split_edge - 1, split_edge, split_edge + 1, 2 * split_edge + 1)],
+             ("k1", q, g_big, 65536, 1, 2e-3), ("k32", q, g_big, 65536, 32, 2e-3),
+             ("k32_count<k", q, g_serve, 20, 32, 2e-3), ("B37", q37, g_big, 100003, 5, 2e-3),
+             ("B37_1048576", q37, g_huge, BIG_ROWS // 2 - 1, 5, 2e-3),
+             ("split_ties", q_ties, g_ties, 100003, 5, 2e-3)]
+    serve_err, near, slots = None, 0, 0
+    for name, qq, g, count, k, tol in cases:
+        err, n_near, n_slots = _k1_case(name, qq, g, count, k, tol)
+        near, slots = near + n_near, slots + n_slots
         if name == "serve":
             serve_err = err
-    return (q, g_serve, 512), serve_err
+    _, i_ties = gallery_topk(q_ties, g_ties, 100003, k=2)
+    got = [i_ties[n].tolist() for n in range(len(pairs))]
+    print(f"K1 split_ties: pairs {pairs} came back as {got}", flush=True)
+    if got != [list(p) for p in pairs]:
+        raise AssertionError("K1 did not give exact ties to the lower row")
+    print(f"K1 near-tie slots: {near} of {slots} ({near / slots:.2e}; limit "
+          f"{MAX_NEAR_TIE_SHARE})", flush=True)
+    if near > MAX_NEAR_TIE_SHARE * slots:
+        raise AssertionError(f"K1 swapped {near} of {slots} slots against its plain version")
+    return q, {SERVE_ROWS: g_serve, MID_ROWS: g_big, BIG_ROWS: g_huge}, serve_err
+
+
+def _kernel_device_ms(fn, names: tuple[str, ...], iters: int = 20) -> float:
+    """Device time per call of the CUDA kernels whose names contain one of
+    ``names``, from torch.profiler over ``iters`` calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in prof.key_averages()
+               if any(n in e.key for n in names)) / iters / 1e3
+
+
+def _host_ms(fn, iters: int = 50) -> float:
+    """Host time per call, the card left to catch up afterwards."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return dt / iters * 1e3
+
+
+def time_k1(q, galleries, k: int = 5) -> list[dict]:
+    """K1 at the three gallery sizes, each half filled: kernel (CUDA events
+    over back-to-back calls, the kernels' own device time, and the
+    wrapper's host time per call), plain version, bound and two library
+    yardsticks (a bf16 product with f32 output, and the f32 product;
+    ``torch.topk`` after each)."""
+    import torch
+
+    from facerec_torch.ops.gallery import gallery_topk, gallery_topk_plain
+
+    out = []
+    for rows, g in galleries.items():
+        count = rows // 2
+        cnt = torch.tensor(count, dtype=torch.int32, device=q.device)
+        b, dim = q.shape
+        qb, gv = q.to(torch.bfloat16), g[:count]
+        gf = gv.float()
+        bound, by = _bound_ms(b * dim * 4 + count * dim * 2 + b * k * 8, 2.0 * b * count * dim,
+                              BF16_TC_FLOPS)
+        try:
+            torch.mm(qb, gv.T, out_dtype=torch.float32)
+            lib_kind = "topk(mm(bf16, bf16, out_dtype=f32))"
+
+            def lib():
+                return torch.topk(torch.mm(qb, gv.T, out_dtype=torch.float32), k)
+        except (TypeError, RuntimeError) as e:
+            print(f"torch.mm takes no out_dtype here ({str(e).splitlines()[0][:200]}); the "
+                  "yardstick is a bf16 product", flush=True)
+            lib_kind = "topk(mm(bf16, bf16).float())"
+
+            def lib():
+                return torch.topk(torch.mm(qb, gv.T).float(), k)
+        iters = 50 if rows <= SERVE_ROWS else 20 if rows <= MID_ROWS else 10
+        row = {"rows": rows, "count": count, "queries": b, "k": k,
+               "l2": "warm (valid rows fit in the 50 MB L2)" if count * dim * 2 < 50e6 else
+                     "cold (valid rows exceed the 50 MB L2)",
+               "ms": _time_ms(lambda: gallery_topk(q, g, cnt, k=k), iters=iters),
+               "host_ms": _host_ms(lambda: gallery_topk(q, g, cnt, k=k)),
+               "device_ms": _kernel_device_ms(lambda: gallery_topk(q, g, cnt, k=k),
+                                              ("topk_partial", "topk_merge")),
+               "plain_ms": _time_ms(lambda: gallery_topk_plain(qb, g, cnt, k=k),
+                                    iters=3 if rows > MID_ROWS else 10, warmup=1),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": _time_ms(lib, iters=iters), "library": lib_kind,
+               "library_f32_ms": _time_ms(lambda: torch.topk(torch.matmul(q, gf.T), k),
+                                          iters=iters)}
+        del gf
+        print("K1 time: " + json.dumps(row), flush=True)
+        out.append(row)
+    return out
 
 
 def check_k2(dev):
@@ -188,24 +345,24 @@ def small_input_agrees(dev) -> None:
         raise AssertionError("the step on the card disagrees with the CPU step on a small input")
 
 
-def serve(dev):
-    """Phase 4. Returns the kernels' launches in one step and step stats."""
+def serve(dev, frames, capacity: int, enroll, agree: bool = False):
+    """Phases 4 and 5: the serve step at bench.py's configuration with a
+    bf16 gallery of ``capacity`` rows, half filled by ``enroll(pipe, n)``.
+    Returns the kernels' launches in one step and step stats."""
     import numpy as np
     import torch
 
-    from facerec_torch.data.synthetic import face_frames
     from facerec_torch.ops.gallery import gallery_topk
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
-    t0 = time.perf_counter()
-    rng = np.random.default_rng(0)
-    frames = face_frames(BATCH, FRAME_HW, FACES, rng)
-    print(f"rendered {BATCH} frames in {time.perf_counter() - t0:.1f} s", flush=True)
     pipe = build_pipeline(dev, FRAME_HW, FACES, torch.bfloat16,
-                          dict(gallery_capacity=1024, top_k=5, embed_size=160))
-    n_ids = 1024 // 2
-    pipe.gallery.add_many([f"id_{i}" for i in range(n_ids)],
-                          rng.normal(size=(n_ids, 512)).astype(np.float32))
+                          dict(gallery_capacity=capacity, top_k=5, embed_size=160))
+    n_ids = capacity // 2
+    t0 = time.perf_counter()
+    enroll(pipe, n_ids)
+    torch.cuda.synchronize()
+    print(f"gallery {capacity} rows: enrolled {pipe.gallery.count} in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
     t0 = time.perf_counter()
     pipe.process(frames)  # first call: cuDNN autotuning, allocator warm-up
     torch.cuda.synchronize()
@@ -217,7 +374,7 @@ def serve(dev):
     torch.cuda.synchronize()
     launches = {"gallery_topk": gallery_topk.launches,
                 "shear_rotate": rotate_patches_kernel.launches}
-    print(f"launches in one step: {launches}", flush=True)
+    print(f"launches in one step (gallery {capacity} rows): {launches}", flush=True)
     if min(launches.values()) < 1:
         raise AssertionError(f"the serve step did not go through every kernel: {launches}")
 
@@ -239,14 +396,39 @@ def serve(dev):
             and (np.abs(scores[valid]) <= 1.0 + 1e-3).all()):
         raise AssertionError("serve step outputs are malformed")
 
-    small_input_agrees(dev)
+    if agree:
+        small_input_agrees(dev)
 
     stats = pipe.benchmark(frames, iters=10, warmup=2)
     x = pipe.upload(frames)
     stages = stage_breakdown(pipe, x)
     busy = device_busy(pipe, x)
-    return launches, dict(stats, detected=found, detected_p090=found_090,
-                          detected_expected=expected, stages_ms=stages, **busy)
+    return launches, dict(stats, gallery_rows=capacity, gallery_count=pipe.gallery.count,
+                          detected=found, detected_p090=found_090, detected_expected=expected,
+                          stages_ms=stages, **busy)
+
+
+def enroll_host(rng):
+    """Half the gallery from host normals, one upload (bench.py's small
+    galleries)."""
+    import numpy as np
+
+    def enroll(pipe, n):
+        pipe.gallery.add_many([f"id_{i}" for i in range(n)],
+                              rng.normal(size=(n, 512)).astype(np.float32))
+    return enroll
+
+
+def enroll_device(seed: int):
+    """Half the gallery from seeded normals made on the card and enrolled
+    there (bench.py's production scale, ``add_many_device``)."""
+    import torch
+
+    def enroll(pipe, n):
+        gen = torch.Generator(device=pipe.device).manual_seed(seed)
+        pipe.gallery.add_many_device([f"id_{i}" for i in range(n)],
+                                     torch.randn(n, 512, generator=gen, device=pipe.device))
+    return enroll
 
 
 def device_busy(pipe, x, steps: int = 3) -> dict:
@@ -305,20 +487,11 @@ def stage_breakdown(pipe, x) -> dict:
     return out
 
 
-def kernel_rows(k1_in, k1_err, k2_in, k2_err, launches) -> list[dict]:
-    import torch
-
-    from facerec_torch.ops.gallery import gallery_topk, gallery_topk_plain
+def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches) -> list[dict]:
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
     from facerec_torch.ops.warp_fast import rotate_patches
 
-    q, g, count = k1_in
-    cnt = torch.tensor(count, dtype=torch.int32, device=q.device)
-    gf = g.float()[:count]
-    b, dim = q.shape
-    k = 5
-    k1_bound, k1_by = _bound_ms(b * dim * 4 + count * dim * g.element_size() + b * k * 8,
-                                2.0 * b * count * dim)
+    serve_row = next(r for r in k1_sizes if r["rows"] == SERVE_ROWS)
     patches, angles, centers, e = k2_in
     n, p = patches.shape[0], patches.shape[1]
     c = patches.shape[3]
@@ -328,14 +501,17 @@ def kernel_rows(k1_in, k1_err, k2_in, k2_err, launches) -> list[dict]:
                                 9.0 * n * e * e * c)
     return [
         {"name": "gallery_topk", "route": "cuda", "source": "facerec_torch/csrc/gallery_topk.cu",
-         "replaces": "facerec_tpu/ops/gallery.py:70", "launches": launches["gallery_topk"],
+         "replaces": "facerec_tpu/ops/gallery.py:70",
+         "launches": launches["serve"]["gallery_topk"],
+         "launches_by_path": {k: v["gallery_topk"] for k, v in launches.items()},
          "max_abs_err": k1_err,
-         "ms": _time_ms(lambda: gallery_topk(q, g, cnt, k=k), iters=50),
-         "plain_ms": _time_ms(lambda: gallery_topk_plain(q, g, cnt, k=k), iters=50),
-         "bound_ms": k1_bound, "bound_by": k1_by,
-         "library_ms": _time_ms(lambda: torch.topk(torch.matmul(q, gf.T), k), iters=50)},
+         **{key: serve_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                            "library_ms", "library_f32_ms")},
+         "sizes": k1_sizes},
         {"name": "shear_rotate", "route": "cuda", "source": "facerec_torch/csrc/shear_rotate.cu",
-         "replaces": "facerec_tpu/ops/pallas_warp.py:84", "launches": launches["shear_rotate"],
+         "replaces": "facerec_tpu/ops/pallas_warp.py:84",
+         "launches": launches["serve"]["shear_rotate"],
+         "launches_by_path": {k: v["shear_rotate"] for k, v in launches.items()},
          "max_abs_err": k2_err,
          "ms": _time_ms(lambda: rotate_patches_kernel(patches, angles, centers, e), iters=20),
          "plain_ms": _time_ms(lambda: rotate_patches(patches, angles, centers, e), iters=5),
@@ -372,19 +548,30 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    k1_in, k1_err = check_k1(dev)
+    q, galleries, k1_err = check_k1(dev)
+    k1_sizes = time_k1(q, galleries)
+    del galleries
+    torch.cuda.empty_cache()
     k2_in, k2_err = check_k2(dev)
-    launches, stats = serve(dev)
-    print("serve: " + json.dumps({"faces_per_sec": stats["faces_per_sec"],
-                                  "sec_per_batch": stats["sec_per_batch"],
-                                  "host_sec_per_batch": stats["host_sec_per_batch"],
-                                  "detected": stats["detected"],
-                                  "detected_p090": stats["detected_p090"],
-                                  "detected_expected": stats["detected_expected"],
-                                  "stages_ms": stats["stages_ms"],
-                                  "device_busy_share": stats["device_busy_share"],
-                                  "card": card}), flush=True)
-    rows = kernel_rows(k1_in, k1_err, k2_in, k2_err, launches)
+
+    import numpy as np
+
+    from facerec_torch.data.synthetic import face_frames
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(0)
+    frames = face_frames(BATCH, FRAME_HW, FACES, rng)
+    print(f"rendered {BATCH} frames in {time.perf_counter() - t0:.1f} s", flush=True)
+    launches = {}
+    for path, capacity, enroll in (("serve", SERVE_ROWS, enroll_host(rng)),
+                                   ("serve_1048576", BIG_ROWS, enroll_device(5))):
+        launches[path], stats = serve(dev, frames, capacity, enroll, agree=path == "serve")
+        print(f"{path}: " + json.dumps({key: stats[key] for key in (
+            "gallery_rows", "gallery_count", "faces_per_sec", "sec_per_batch",
+            "host_sec_per_batch", "detected", "detected_p090", "detected_expected",
+            "stages_ms", "device_busy_share")} | {"card": card}), flush=True)
+        torch.cuda.empty_cache()
+    rows = kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches)
     print(json.dumps({"kernels": rows, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -7,18 +7,26 @@ sort, since ``torch.topk`` promises no tie order). ``gallery_topk`` launches
 the CUDA kernel ``csrc/gallery_topk.cu`` (the port of the Pallas
 ``_topk_kernel``) on CUDA tensors and takes the plain version only for CPU
 tensors.
+
+On the card a bf16 gallery takes the tensor-core kernel, which rounds the
+queries to bf16 before the product, as ``gallery_topk_pallas`` casts them to
+the gallery's dtype: it computes ``gallery_topk_plain(queries.bfloat16(),
+gallery, ...)``. The CPU path keeps f32 queries, as the JAX package's CPU
+dispatch (``gallery_topk_xla``) does.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from facerec_torch import build
 
 NEG = -1e30
-_TQ, _TG = 32, 64  # query tile and row tile of csrc/gallery_topk.cu
+_TQ, _TG = 32, 64  # query tile and row tile of the f32 kernel in csrc/gallery_topk.cu
+_BQ, _BG = 128, 128  # query tile and row tile of the bf16 (tensor-core) kernel
 _MAXK = 32
 _SMS = 132
 
@@ -44,20 +52,40 @@ def gallery_topk_plain(queries: torch.Tensor, gallery: torch.Tensor,
 
 
 def _splits(b: int, g: int) -> tuple[int, int]:
-    """(rows per split, splits): enough blocks for ~4 waves over the SMs,
-    each split a whole number of score tiles."""
+    """f32 kernel: (rows per split, splits), enough blocks for ~4 waves over
+    the SMs, each split a whole number of score tiles."""
     qtiles = -(-b // _TQ)
     want = max(1, min(-(-g // _TG), -(-4 * _SMS // qtiles)))
     rows = -(-(-(-g // want)) // _TG) * _TG
     return rows, -(-g // rows)
 
 
+def bf16_splits(b: int, g: int, sms: int = _SMS) -> int:
+    """bf16 kernel: gallery splits for one wave of blocks (each block holds
+    most of an SM's shared memory, so query tiles x splits <= SMs), at most
+    one split per row tile of the capacity. The query tiles of one split
+    are neighbours in launch order, so its rows cross HBM once."""
+    return max(1, min(-(-g // _BG), sms // -(-b // _BQ)))
+
+
+def bf16_rows_per_split(count: int, nsplit: int) -> int:
+    """Rows of each split of the bf16 kernel for a valid prefix of ``count``
+    rows, in whole row tiles, as the kernel computes it on the device."""
+    return -(-(-(-count // nsplit)) // _BG) * _BG
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def gallery_topk(queries: torch.Tensor, gallery: torch.Tensor,
                  count: torch.Tensor | int, k: int = 5
                  ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Top-k cosine matches; the CUDA kernel on CUDA tensors, the plain
-    version on CPU tensors. ``count`` may be a device int32 scalar (read by
-    the kernel from device memory) or a Python int."""
+    """Top-k cosine matches; the CUDA kernel on CUDA tensors (queries
+    rounded to bf16 against a bf16 gallery), the plain version on CPU
+    tensors. ``count`` may be a device int32 scalar (read by the kernel from
+    device memory) or a Python int."""
     if not gallery.is_cuda:
         return gallery_topk_plain(queries, gallery, count, k)
     b, d = queries.shape
@@ -73,13 +101,21 @@ def gallery_topk(queries: torch.Tensor, gallery: torch.Tensor,
     dev = gallery.device
     q = queries.to(device=dev, dtype=torch.float32).contiguous()
     cnt = torch.as_tensor(count, dtype=torch.int32, device=dev).reshape(())
-    rows, nsplit = _splits(b, g)
+    bf16 = gallery.dtype == torch.bfloat16
+    if bf16:
+        if d % 16:
+            raise ValueError(f"the bf16 kernel takes widths that are multiples of 16, not {d}")
+        if q.data_ptr() % 16 or gallery.data_ptr() % 16:
+            raise ValueError("the bf16 kernel needs 16-byte aligned queries and gallery")
+        rows, nsplit = 0, bf16_splits(b, g, _sm_count(dev.index or 0))
+    else:
+        rows, nsplit = _splits(b, g)
     cand_v = torch.empty((b, nsplit, k), dtype=torch.float32, device=dev)
     cand_i = torch.empty((b, nsplit, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     fn = _launcher()
-    err = fn(q.data_ptr(), gallery.data_ptr(), int(gallery.dtype == torch.bfloat16),
+    err = fn(q.data_ptr(), gallery.data_ptr(), int(bf16),
              cnt.data_ptr(), b, g, d, k, rows, nsplit, cand_v.data_ptr(),
              cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
              torch.cuda.current_stream(dev).cuda_stream)

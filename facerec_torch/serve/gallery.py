@@ -7,7 +7,9 @@ device as an int32 scalar, which the match kernel reads from device memory:
 the serve step needs no host read for it. Persistence keeps the on-disk
 contract of the JAX package (a pickle mapping name -> f32 embedding, plus
 one JPEG per reference face), so a gallery saved by either package loads in
-the other. The port updates the matrix in place.
+the other. The port updates the matrix in place. Normalisation is always
+in f32: on the host for ``add``/``add_many``, on the device for
+``add_many_device``.
 """
 
 from __future__ import annotations
@@ -76,6 +78,27 @@ class GalleryStore:
         start = self.count
         self.embeddings[start:start + len(names)] = torch.from_numpy(embs).to(
             self.device, self.dtype)
+        self.names.extend(str(n) for n in names)
+        self._set_count()
+        return list(range(start, self.count))
+
+    def add_many_device(self, names: list[str], embeddings: torch.Tensor) -> list[int]:
+        """Bulk enrollment from embeddings already on the device (the embed
+        stage's own output, or a generated gallery): normalised in f32 on
+        the device and spliced into the valid prefix, with no host copy of
+        the rows. At 524,288 x 512 that saves a 1 GiB upload."""
+        if not names:
+            return []
+        if embeddings.ndim != 2 or tuple(embeddings.shape) != (len(names), self.dim):
+            raise ValueError(f"expected [{len(names)}, {self.dim}] embeddings, "
+                             f"got {tuple(embeddings.shape)}")
+        if self.count + len(names) > self.capacity:
+            raise ValueError(
+                f"gallery full: {self.count}+{len(names)} > capacity {self.capacity}")
+        emb = embeddings.to(device=self.device, dtype=torch.float32)
+        emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
+        start = self.count
+        self.embeddings[start:start + len(names)] = emb.to(self.dtype)
         self.names.extend(str(n) for n in names)
         self._set_count()
         return list(range(start, self.count))

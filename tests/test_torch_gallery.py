@@ -1,5 +1,6 @@
 """Parity of the port's match stage with the JAX package on the CPU:
-``facerec_torch.ops.gallery`` against ``gallery_topk_xla`` and
+``facerec_torch.ops.gallery`` against ``gallery_topk_xla`` (and, for the card
+path's query rounding, against the Pallas kernel in interpret mode) and
 ``facerec_torch.serve.gallery.GalleryStore`` against the JAX store, including
 the on-disk format in both directions."""
 
@@ -8,10 +9,11 @@ import numpy as np
 import pytest
 import torch
 
-from facerec_torch.ops.gallery import cosine_to_euclidean, gallery_topk, gallery_topk_plain
+from facerec_torch.ops.gallery import (bf16_rows_per_split, bf16_splits, cosine_to_euclidean,
+                                       gallery_topk, gallery_topk_plain)
 from facerec_torch.serve.gallery import GalleryStore
 from facerec_tpu.ops.gallery import cosine_to_euclidean as jax_c2e
-from facerec_tpu.ops.gallery import gallery_topk_xla
+from facerec_tpu.ops.gallery import gallery_topk_pallas, gallery_topk_xla
 from facerec_tpu.serve.gallery import GalleryStore as JaxGalleryStore
 
 
@@ -63,6 +65,65 @@ def test_gallery_topk_matches_xla(dtype, atol, count):
                                np.asarray(jax_c2e(jnp.asarray(v0)))[:, valid], atol=1e-3)
 
 
+@pytest.mark.parametrize("count", [700, 1000, 3, 0])
+def test_card_rounding_matches_pallas(count):
+    """On the card the bf16 kernel rounds the queries to bf16 before the
+    product, as ``gallery_topk_pallas`` casts them to the gallery dtype: the
+    plain version fed rounded queries is that arithmetic, held here against
+    the Pallas kernel (interpret mode, as tests/test_ops.py runs it). Pallas
+    returns its scores quantised down by at most 2^-18 and so ties rows
+    whose scores lie within one quantum (ties to the lower index); where the
+    two orders differ, the plain scores of the two rows lie that close.
+    Pallas leaves the indices of empty slots at 0; the values compare."""
+    q, g = _bf16_case()
+    gj = jnp.asarray(g, jnp.bfloat16)
+    v1, i1 = gallery_topk_pallas(jnp.asarray(q), gj, count, k=5, interpret=True)
+    v1, i1 = np.asarray(v1), np.asarray(i1)
+    gt = torch.from_numpy(np.array(gj.astype(jnp.float32))).to(torch.bfloat16)
+    qt = torch.from_numpy(q)
+    v0, i0 = gallery_topk_plain(qt.to(torch.bfloat16), gt, count, k=5)
+    v0, i0 = v0.numpy(), i0.numpy()
+    valid = np.arange(5) < min(count, 5)
+    quantum = 2.0 ** -18
+    np.testing.assert_allclose(v1, v0, atol=quantum + 1e-6, rtol=0)
+    scores = (qt.to(torch.bfloat16).float() @ gt.float().T).numpy()
+    rows = np.arange(q.shape[0])[:, None]
+    differ = (i1 != i0) & valid
+    assert np.all(np.abs(scores[rows, i1] - scores[rows, i0])[differ] <= quantum)
+    assert differ.sum() <= 0.05 * differ.size
+    # the rounding is what makes them agree: f32 queries miss by ~1e-3
+    vf, _ = gallery_topk_plain(qt, gt, count, k=5)
+    if count:
+        assert np.abs(vf.numpy() - v1)[:, valid].max() > 1e-5
+
+
+@pytest.mark.parametrize("b,g,count", [(384, 1024, 512), (384, 131072, 65536),
+                                       (384, 1048576, 524288), (37, 1048576, 524287)])
+def test_bf16_splits_cover_the_prefix(b, g, count):
+    """The bf16 kernel's grid: one wave (query tiles x splits <= 132 SMs),
+    splits of whole 128-row tiles cut from the valid prefix on the device,
+    which together cover it, and at production sizes fill the card."""
+    nsplit = bf16_splits(b, g, sms=132)
+    per = bf16_rows_per_split(count, nsplit)
+    qtiles = -(-b // 128)
+    assert per % 128 == 0 and per > 0
+    assert qtiles * nsplit <= 132 and nsplit <= -(-g // 128)
+    assert nsplit * per >= count and per - 128 < -(-count // nsplit)
+    active = -(-count // per)
+    if g >= 131072:
+        assert qtiles * active >= 0.95 * 132
+
+
+def test_k1_breakdown_finds_the_epilogue():
+    """The breakdown tool skips the bf16 kernel's per-tile epilogue by
+    editing the shipped source; it must still find the place."""
+    from facerec_torch.k1_breakdown import _variants
+
+    v = _variants()
+    assert v["no_epilogue"] != v["shipped"]
+    assert "if (count >= 0) continue;" in v["no_epilogue"]
+
+
 def test_gallery_topk_ties_go_to_lower_index():
     g = np.zeros((64, 8), np.float32)
     g[[5, 9, 40, 41, 63], 0] = 1.0  # five identical best rows
@@ -107,6 +168,39 @@ def test_gallery_store_matches_jax(dtype):
     assert port.name_of(1) == "q2" and port.name_of(5) == "Unknown" and port.name_of(-1) == "Unknown"
     port.clear()
     assert port.count == 0 and int(port.count_device) == 0 and not port.embeddings.any()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gallery_add_many_device_matches_jax(dtype):
+    """Enrollment from device-resident rows, normalised in f32 on the
+    device: names, counts and rows as the JAX store's ``add_many_device``
+    (bf16 rows within one ulp: the two f32 norms may differ in the last
+    bit before rounding)."""
+    rng = np.random.default_rng(5)
+    embs = rng.normal(size=(5, 32)).astype(np.float32) * 3.0
+    jax_store = JaxGalleryStore(capacity=8, dim=32, dtype=getattr(jnp, dtype))
+    port = GalleryStore(capacity=8, dim=32, dtype=dtype, device="cpu")
+    jax_store.add("first", embs[0])
+    port.add("first", embs[0])
+    names = [f"d{i}" for i in range(4)]
+    assert jax_store.add_many_device(names, jnp.asarray(embs[1:])) == [1, 2, 3, 4]
+    assert port.add_many_device(names, torch.from_numpy(embs[1:])) == [1, 2, 3, 4]
+    assert port.add_many_device([], torch.zeros(0, 32)) == []
+    assert port.names == jax_store.names == ["first", *names]
+    assert port.count == jax_store.count == int(port.count_device) == 5
+    ref = np.asarray(jax_store.embeddings.astype(jnp.float32))
+    if dtype == "float32":
+        np.testing.assert_allclose(port.embeddings.numpy(), ref, atol=1e-6)
+    else:
+        bits = port.embeddings.view(torch.int16).numpy().astype(np.int32)
+        ref_bits = np.asarray(jax_store.embeddings).view(np.int16).astype(np.int32)
+        assert np.abs(bits - ref_bits).max() <= 1
+    np.testing.assert_allclose(np.linalg.norm(port.embeddings.float().numpy()[:5], axis=1), 1.0,
+                               atol=1e-2)
+    with pytest.raises(ValueError, match="expected"):
+        port.add_many_device(["x"], torch.zeros(1, 16))
+    with pytest.raises(ValueError, match="gallery full"):
+        port.add_many_device([f"y{i}" for i in range(4)], torch.ones(4, 32))
 
 
 def test_gallery_save_load_both_directions(tmp_path):
