@@ -19,9 +19,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
               of the plain version with f32 queries. Then K1's time at
               1,024 / 131,072 / 1,048,576 rows (counts 512 / 65,536 / 524,288)
               beside its bound and two library yardsticks;
-  3. K2       the 2-shear rotation kernel against ``rotate_patches`` at
-              384 x 208 -> 160, angles up to +-15 degrees; max abs <= 1.0 and
-              mean < 1e-3 on 0..255 input;
+  3. K2       the 2-shear rotation kernel against ``rotate_patches``, bit
+              for bit (``torch.equal``) on 0..255 input: 384 x 208 -> 160
+              with angles up to +-15 degrees, angles of 0, angles of +-1e-7
+              rad about off-centre centres (lines whose fine base rounds up
+              to 8), angles beyond the clamp, centres at and beyond the
+              0.1 x P cap, E == P, 128 -> 96, N = 1 and N = 0 (no launch);
   4. serve    the port's serve step at ``bench.py``'s configuration (48 frames
               of 480 x 640 with 8 rendered faces each, MTCNN with the
               committed detector weights in bf16, a full-width ResNet-18
@@ -36,9 +39,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
               (``GalleryStore.add_many_device``), as ``bench.py`` runs its
               production scale: launch counts from 0, both kernels launched,
               faces/s and the stage breakdown;
-  6. summary  one JSON line of kernels (time, plain version's time, library
-              call's time, bound, launches, error; K1 at three gallery
-              sizes), the card's name and power limit, and the result line.
+  6. summary  one JSON line of kernels (time by CUDA events, the kernel's
+              own device time and the wrapper's host time, plain version's
+              time, library call's time, bound from this run's inputs,
+              launches, error; K1 at three gallery sizes; K2 at forced
+              tilings, each bit for bit), the card's name and power limit,
+              and the result line.
 
 Exits nonzero, printing no result, when no CUDA card is present or when run
 outside a checkout of the repository.
@@ -272,28 +278,125 @@ def time_k1(q, galleries, k: int = 5) -> list[dict]:
     return out
 
 
+K2_CASES = ("random", "zero", "tiny", "clamped", "capped")
+
+
+def k2_case(case, angles, centers, p):
+    """Rotation inputs of one K2 edge case, from drawn angles [N] and
+    centres [N, 2]: "random" keeps them; "zero" sets the angles to 0; "tiny"
+    to +-1e-7 rad about off-centre centres (lines whose fine base rounds up
+    to 8); "clamped" beyond the +-15 degree clamp; "capped" puts the centres
+    at and beyond the 0.1*P cap."""
+    import torch
+
+    dev = angles.device
+    idx = torch.arange(angles.shape[0], device=dev)
+    if case == "zero":
+        angles = torch.zeros_like(angles)
+    elif case == "tiny":
+        angles = torch.where(idx % 2 == 0, 1e-7, -1e-7)
+        centers = p * torch.tensor([[0.3, 0.62], [0.65, 0.4], [0.45, 0.3]], device=dev)[idx % 3]
+    elif case == "clamped":
+        angles = torch.tensor([0.27, -0.27, 0.6, -1.2], device=dev)[idx % 4]
+    elif case == "capped":
+        cp, cap = (p - 1) / 2.0, 0.1 * p
+        centers = torch.tensor([[cp + cap, cp - cap], [cp - cap, cp + cap], [0.0, p - 1.0],
+                                [p * 1.5, -p * 0.5]], device=dev)[idx % 4]
+    elif case != "random":
+        raise ValueError(f"no K2 case {case!r}")
+    return angles, centers
+
+
+def _k2_inputs(case, n, p, gen, dev):
+    """Patches at 0..255, angles within +-15 degrees about centres near the
+    middle (the serve shape's draw), then ``k2_case``."""
+    import torch
+
+    patches = (torch.rand(n, p, p, 3, generator=gen, device=dev) * 255).to(torch.bfloat16)
+    angles = (torch.rand(n, generator=gen, device=dev) * 2 - 1) * math.radians(15.0)
+    centers = p * (0.4 + 0.2 * torch.rand(n, 2, generator=gen, device=dev))
+    return (patches, *k2_case(case, angles, centers, p))
+
+
+def _k2_taps(angles, centers, p, max_angle_deg=15.0):
+    from facerec_torch.ops.warp_fast import _shear_params
+
+    max_rad = math.radians(max_angle_deg)
+    sy, cy, sx, cx, ky, kx = _shear_params(angles.float().clamp(-max_rad, max_rad),
+                                           centers.float(), p, max_rad)
+    return (sy, cy, ky), (sx, cx, kx)
+
+
+def fb8_lines(angles, centers, p) -> int:
+    """Lines of both passes whose fine base rounds up to 8."""
+    from facerec_torch.ops.warp_fast import COARSE, _shear_lines
+
+    return sum(int((_shear_lines(s, c, p, -k, k)[1] == COARSE).sum().item())
+               for s, c, k in _k2_taps(angles, centers, p))
+
+
+def k2_read_mask(angles, centers, p, e, max_angle_deg=15.0):
+    """[N, P, P] bool: the patch values that the centred E x E crop of the
+    two-shear rotation reads. Crop row i reads the y pass's columns
+    off + ox[i] .. off + E + ox[i]; column x of the y pass reads patch rows
+    i + oy[x] and i + oy[x] + 1. Values outside the patch are zeros and read
+    nothing."""
+    import torch
+
+    from facerec_torch.ops.warp_kernel import line_taps
+
+    (sy, cy, ky), (sx, cx, kx) = _k2_taps(angles, centers, p, max_angle_deg)
+    oy = line_taps(sy, cy, p, -ky, ky)[0].long()  # [N, P], by column
+    ox = line_taps(sx, cx, p, -kx, kx)[0].long()  # [N, P], by row
+    n, off, dev = oy.shape[0], (p - e) // 2, oy.device
+    rows = torch.arange(off, off + e, device=dev)  # the crop's patch rows
+    x = torch.arange(p, device=dev)
+    first = off + ox[:, off:off + e, None]  # [N, E, 1]
+    used = (x >= first) & (x <= first + e)  # [N, E, P]: row i's x pass reads column x
+    mask = torch.zeros(n * p * p, dtype=torch.bool, device=dev)
+    base = (torch.arange(n, device=dev) * p * p)[:, None, None] + x
+    for tap in (0, 1):
+        r = rows[None, :, None] + oy[:, None, :] + tap  # [N, E, P]
+        ok = used & (r >= 0) & (r < p)
+        mask[(base + r * p)[ok]] = True
+    return mask.view(n, p, p)
+
+
 def check_k2(dev):
-    """Phase 3. Returns (inputs at the serve shape, max abs error)."""
+    """Phase 3: K2 bit for bit against ``rotate_patches`` at the serve shape
+    and the edge cases. Returns (inputs at the serve shape, max abs error
+    over all cases)."""
     import torch
 
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
     from facerec_torch.ops.warp_fast import rotate_patches
 
     g0 = torch.Generator(device=dev).manual_seed(12)
-    n, p, e = BATCH * FACES, 208, 160
-    patches = (torch.rand(n, p, p, 3, generator=g0, device=dev) * 255).to(torch.bfloat16)
-    angles = (torch.rand(n, generator=g0, device=dev) * 2 - 1) * math.radians(15.0)
-    centers = p * (0.4 + 0.2 * torch.rand(n, 2, generator=g0, device=dev))
-    got = rotate_patches_kernel(patches, angles, centers, e).float()
-    ref = rotate_patches(patches, angles, centers, e).float()
-    torch.cuda.synchronize()
-    err = (got - ref).abs()
-    mx, mean = err.max().item(), err.mean().item()
-    print(f"K2 rotate: N={n} P={p} E={e} max_abs_err={mx:.3g} mean_abs_err={mean:.3g} "
-          f"exact_share={(err == 0).float().mean().item():.6f}", flush=True)
-    if not (mx <= 1.0 and mean < 1e-3):
-        raise AssertionError("K2 disagrees with its plain version")
-    return (patches, angles, centers, e), mx
+    cases = [("serve", "random", BATCH * FACES, 208, 160), ("angle0", "zero", 64, 208, 160),
+             ("angle1e-7", "tiny", 64, 208, 160), ("clamped", "clamped", 64, 208, 160),
+             ("capped", "capped", 64, 208, 160), ("E==P", "random", 16, 208, 208),
+             ("128to96", "random", 64, 128, 96), ("N1", "random", 1, 208, 160),
+             ("N0", "random", 0, 208, 160)]
+    serve_in, worst = None, 0.0
+    for name, case, n, p, e in cases:
+        patches, angles, centers = _k2_inputs(case, n, p, g0, dev)
+        before = rotate_patches_kernel.launches
+        got = rotate_patches_kernel(patches, angles, centers, e)
+        ref = rotate_patches(patches, angles, centers, e)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item() if n else 0.0
+        worst = max(worst, err)
+        launched = rotate_patches_kernel.launches - before
+        fb8 = fb8_lines(angles, centers, p) if n else 0
+        ok = (got.shape == (n, e, e, 3) and torch.equal(got, ref) and launched == (1 if n else 0)
+              and (case != "tiny" or fb8 > 0))
+        print(f"K2 {name}: N={n} P={p} E={e} bit_exact={torch.equal(got, ref)} "
+              f"max_abs_err={err:.3g} launches={launched} fb8_lines={fb8}", flush=True)
+        if not ok:
+            raise AssertionError(f"K2 {name} disagrees with its plain version")
+        if name == "serve":
+            serve_in = (patches, angles, centers, e)
+    return serve_in, worst
 
 
 def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg):
@@ -487,6 +590,30 @@ def stage_breakdown(pipe, x) -> dict:
     return out
 
 
+def k2_tilings(k2_in, blocks_per_sm=(2, 1), segments=(1, 2, 3, 4)) -> list[dict]:
+    """K2's device time at the serve shape with its tiling forced, beside
+    the launcher's own choice (``segments`` and ``blocks_per_sm`` 0); each
+    result bit for bit against the plain version."""
+    import torch
+
+    from facerec_torch.ops.warp_fast import rotate_patches
+    from facerec_torch.ops.warp_kernel import rotate_patches_tiled
+
+    patches, angles, centers, e = k2_in
+    ref = rotate_patches(patches, angles, centers, e)
+    out = []
+    for b, g in [(0, 0)] + [(b, g) for b in blocks_per_sm for g in segments]:
+        def fn(g=g, b=b):
+            return rotate_patches_tiled(patches, angles, centers, e, segments=g, blocks_per_sm=b)
+        exact = torch.equal(fn(), ref)
+        out.append({"blocks_per_sm": b, "segments": g, "bit_exact": exact,
+                    "device_ms": _kernel_device_ms(fn, ("shear_rotate",))})
+        print("K2 tiling: " + json.dumps(out[-1]), flush=True)
+        if not exact:
+            raise AssertionError(f"K2 disagrees with its plain version at tiling {out[-1]}")
+    return out
+
+
 def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches) -> list[dict]:
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
     from facerec_torch.ops.warp_fast import rotate_patches
@@ -495,10 +622,15 @@ def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches) -> list[dict]:
     patches, angles, centers, e = k2_in
     n, p = patches.shape[0], patches.shape[1]
     c = patches.shape[3]
-    # per output element: two y-pass values (2 products + 1 sum each) and
-    # the x pass (2 products + 1 sum)
-    k2_bound, k2_by = _bound_ms(n * p * p * c * 2 + n * e * e * c * 2 + n * (4 + 8),
-                                9.0 * n * e * e * c)
+
+    def k2():
+        return rotate_patches_kernel(patches, angles, centers, e)
+
+    # bytes: the patch values this run's crops read, two slopes and two
+    # consts (f32) per patch, the crop; per output element: two y-pass
+    # values (2 products + 1 sum each) and the x pass (2 products + 1 sum)
+    read = int(k2_read_mask(angles, centers, p, e).sum().item()) * c * 2
+    k2_bound, k2_by = _bound_ms(read + n * 4 * 4 + n * e * e * c * 2, 9.0 * n * e * e * c)
     return [
         {"name": "gallery_topk", "route": "cuda", "source": "facerec_torch/csrc/gallery_topk.cu",
          "replaces": "facerec_tpu/ops/gallery.py:70",
@@ -513,9 +645,12 @@ def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches) -> list[dict]:
          "launches": launches["serve"]["shear_rotate"],
          "launches_by_path": {k: v["shear_rotate"] for k, v in launches.items()},
          "max_abs_err": k2_err,
-         "ms": _time_ms(lambda: rotate_patches_kernel(patches, angles, centers, e), iters=20),
+         "ms": _time_ms(k2, iters=20), "host_ms": _host_ms(k2),
+         "device_ms": _kernel_device_ms(k2, ("shear_rotate",)),
          "plain_ms": _time_ms(lambda: rotate_patches(patches, angles, centers, e), iters=5),
-         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None},
+         "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
+         "patch_bytes_read": read, "patch_share_read": read / (n * p * p * c * 2),
+         "tilings": k2_tilings(k2_in)},
     ]
 
 

@@ -8,10 +8,11 @@ import math
 import pytest
 import torch
 
+from chip_smoke import K2_CASES, k2_case
 from facerec_torch.ops.gallery import (bf16_rows_per_split, bf16_splits, gallery_topk,
                                        gallery_topk_plain)
 from facerec_torch.ops.warp_fast import rotate_patches
-from facerec_torch.ops.warp_kernel import rotate_patches_kernel
+from facerec_torch.ops.warp_kernel import rotate_patches_kernel, rotate_patches_tiled
 
 pytestmark = pytest.mark.cuda
 
@@ -117,9 +118,96 @@ def test_rotate_kernel_matches_plain(dev):
     angles = (torch.rand(n, generator=g0, device=dev) * 2 - 1) * math.radians(20.0)
     centers = p * (0.3 + 0.4 * torch.rand(n, 2, generator=g0, device=dev))
     before = rotate_patches_kernel.launches
-    got = rotate_patches_kernel(patches, angles, centers, e).float()
-    ref = rotate_patches(patches, angles, centers, e).float()
+    got = rotate_patches_kernel(patches, angles, centers, e)
+    ref = rotate_patches(patches, angles, centers, e)
     torch.cuda.synchronize()
     assert rotate_patches_kernel.launches == before + 1
-    err = (got - ref).abs()
-    assert err.max().item() <= 1.0 and err.mean().item() < 1e-3
+    assert torch.equal(got, ref), (got.float() - ref.float()).abs().max().item()
+
+
+def _rotate_case(case, n, p, dev):
+    """Patches at 0..255 and rotation inputs of one edge case
+    (``chip_smoke.k2_case``) from random angles within +-15 degrees."""
+    g0 = torch.Generator(device=dev).manual_seed(p + n)
+    patches = (torch.rand(n, p, p, 3, generator=g0, device=dev) * 255).to(torch.bfloat16)
+    angles = (torch.rand(n, generator=g0, device=dev) * 2 - 1) * math.radians(15.0)
+    centers = p * (0.3 + 0.4 * torch.rand(n, 2, generator=g0, device=dev))
+    return (patches, *k2_case(case, angles, centers, p))
+
+
+@pytest.mark.parametrize("case", K2_CASES)
+@pytest.mark.parametrize("n,p,e", [(5, 128, 96), (5, 208, 160), (3, 208, 208), (1, 208, 160),
+                                   (4, 100, 50)])
+def test_rotate_kernel_bit_exact(dev, case, n, p, e):
+    """Bit for bit against the plain version, at both crop shapes and the
+    edge cases, E == P, one patch, and a shape whose rows are not whole
+    16-byte chunks (the kernel's element-wise copy and store paths)."""
+    patches, angles, centers = _rotate_case(case, n, p, dev)
+    before = rotate_patches_kernel.launches
+    got = rotate_patches_kernel(patches, angles, centers, e)
+    ref = rotate_patches(patches, angles, centers, e)
+    torch.cuda.synchronize()
+    assert rotate_patches_kernel.launches == before + 1
+    assert got.shape == (n, e, e, 3)
+    assert torch.equal(got, ref), (got.float() - ref.float()).abs().max().item()
+
+
+@pytest.mark.parametrize("n,max_angle_deg", [(1, 15.0), (40, 15.0), (384, 15.0), (6, 30.0),
+                                             (3, 40.0)])
+def test_rotate_kernel_tilings(dev, n, max_angle_deg):
+    """The tilings the launcher picks from the batch and the window: one to
+    eight row ranges per patch, and, for the taller windows of wider angle
+    limits, one block per SM with a deeper ring and shorter bands."""
+    g0 = torch.Generator(device=dev).manual_seed(n)
+    p, e = 208, 160
+    patches = (torch.rand(n, p, p, 3, generator=g0, device=dev) * 255).to(torch.bfloat16)
+    angles = (torch.rand(n, generator=g0, device=dev) * 2 - 1) * math.radians(max_angle_deg)
+    centers = p * (0.3 + 0.4 * torch.rand(n, 2, generator=g0, device=dev))
+    got = rotate_patches_kernel(patches, angles, centers, e, max_angle_deg)
+    assert torch.equal(got, rotate_patches(patches, angles, centers, e, max_angle_deg))
+
+
+@pytest.mark.parametrize("blocks_per_sm", [1, 2])
+@pytest.mark.parametrize("segments", [1, 3, 8, 160])
+def test_rotate_kernel_forced_tilings(dev, segments, blocks_per_sm):
+    """Every tiling a caller may force gives the same bits: one to E row
+    ranges per patch, at one or two blocks per SM."""
+    patches, angles, centers = _rotate_case("random", 7, 208, dev)
+    before = rotate_patches_kernel.launches
+    got = rotate_patches_tiled(patches, angles, centers, 160, segments=segments,
+                               blocks_per_sm=blocks_per_sm)
+    assert rotate_patches_kernel.launches == before + 1
+    assert torch.equal(got, rotate_patches(patches, angles, centers, 160))
+
+
+@pytest.mark.parametrize("segments,blocks_per_sm", [(161, 0), (-1, 0), (0, 3)])
+def test_rotate_kernel_refuses_tiling(dev, segments, blocks_per_sm):
+    patches, angles, centers = _rotate_case("random", 2, 208, dev)
+    with pytest.raises(RuntimeError, match="shear_rotate"):
+        rotate_patches_tiled(patches, angles, centers, 160, segments=segments,
+                             blocks_per_sm=blocks_per_sm)
+
+
+@pytest.mark.parametrize("ch", [1, 4])
+def test_rotate_kernel_other_channel_counts(dev, ch):
+    """Grey and four-channel patches take the element-wise x pass."""
+    g0 = torch.Generator(device=dev).manual_seed(ch)
+    n, p, e = 4, 208, 160
+    patches = (torch.rand(n, p, p, ch, generator=g0, device=dev) * 255).to(torch.bfloat16)
+    angles = (torch.rand(n, generator=g0, device=dev) * 2 - 1) * math.radians(20.0)
+    centers = p * (0.3 + 0.4 * torch.rand(n, 2, generator=g0, device=dev))
+    got = rotate_patches_kernel(patches, angles, centers, e)
+    assert torch.equal(got, rotate_patches(patches, angles, centers, e))
+
+
+def test_rotate_kernel_refuses_channels(dev):
+    with pytest.raises(ValueError, match="channels"):
+        rotate_patches_kernel(torch.zeros(2, 64, 64, 5, device=dev), torch.zeros(2, device=dev),
+                              torch.zeros(2, 2, device=dev), 48)
+
+
+def test_rotate_kernel_empty_batch(dev):
+    before = rotate_patches_kernel.launches
+    out = rotate_patches_kernel(torch.zeros(0, 208, 208, 3, device=dev), torch.zeros(0, device=dev),
+                                torch.zeros(0, 2, device=dev), 160)
+    assert out.shape == (0, 160, 160, 3) and rotate_patches_kernel.launches == before

@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from chip_smoke import fb8_lines, k2_case, k2_read_mask
 from facerec_torch.ops import warp_fast as tw
 from facerec_torch.ops.warp_kernel import line_taps, rotate_patches_kernel
 from facerec_tpu.ops import warp_fast as jw
@@ -98,24 +99,87 @@ def _emulate_kernel(patches, oy, wy, ox, wx, e):
     return _rbf(a + b)
 
 
-@pytest.mark.parametrize("p,e", [(128, 96), (208, 160)])
-def test_kernel_line_taps_reproduce_plain_shear(p, e):
-    """The CUDA kernel's reduction of each line to (offset, w0, w1) gives
-    the plain one-hot/9-tap chain bit for bit."""
-    rng = np.random.default_rng(p)
-    n = 6
-    patches = torch.from_numpy(rng.uniform(0, 255, (n, p, p, 3)).astype(np.float32))
-    angles = torch.from_numpy(rng.uniform(-0.3, 0.3, n).astype(np.float32))
-    centers = torch.from_numpy(rng.uniform(p * 0.3, p * 0.7, (n, 2)).astype(np.float32))
+def _taps(angles, centers, p):
+    """The kernel's per-line taps of both passes, and the count of lines
+    whose fine base rounded up to 8 (offset base + 1, weight 0 on the
+    second tap)."""
     max_rad = np.radians(15.0)
     phi = torch.clamp(angles, -max_rad, max_rad)
     sy, cy, sx, cx, ky, kx = tw._shear_params(phi, centers, p, max_rad)
-    oy, wy = line_taps(sy, cy, p, -ky, ky)
-    ox, wx = line_taps(sx, cx, p, -kx, kx)
+    return (line_taps(sy, cy, p, -ky, ky), line_taps(sx, cx, p, -kx, kx),
+            fb8_lines(angles, centers, p))
+
+
+def _angles_centers(case, n, p, rng):
+    """Rotation inputs of one edge case (``chip_smoke.k2_case``) from random
+    angles about the +-15 degree clamp and centres near the middle."""
+    angles = torch.from_numpy(rng.uniform(-0.3, 0.3, n).astype(np.float32))
+    centers = torch.from_numpy(rng.uniform(p * 0.3, p * 0.7, (n, 2)).astype(np.float32))
+    return k2_case(case, angles, centers, p)
+
+
+@pytest.mark.parametrize("p,e,case", [
+    pytest.param(128, 96, "random", id="128-96"),
+    pytest.param(208, 160, "random", id="208-160"),
+    *[pytest.param(p, e, case, id=f"{p}-{e}-{case}")
+      for p, e in [(128, 96), (208, 160)] for case in ("zero", "tiny", "clamped", "capped")]])
+def test_kernel_line_taps_reproduce_plain_shear(p, e, case):
+    """The CUDA kernel's reduction of each line to (offset, w0, w1) gives
+    the plain one-hot/9-tap chain bit for bit, including angles of 0, lines
+    whose fine base rounds up to 8, angles beyond the clamp and centres
+    beyond the cap."""
+    rng = np.random.default_rng(p)
+    n = 6
+    patches = torch.from_numpy(rng.uniform(0, 255, (n, p, p, 3)).astype(np.float32))
+    angles, centers = _angles_centers(case, n, p, rng)
+    (oy, wy), (ox, wx), fb8 = _taps(angles, centers, p)
     assert oy.dtype == torch.int32 and wy.dtype == torch.bfloat16 and wy.shape == (n, p, 2)
+    if case == "tiny":
+        assert fb8 > 0
     got = _emulate_kernel(patches, oy.long(), wy, ox.long(), wx, e)
     ref = tw.rotate_patches(patches, angles, centers, e).float()
     assert torch.equal(got, ref), (got - ref).abs().max()
+
+
+def test_kernel_arithmetic_matches_pallas():
+    """The kernel's arithmetic against the Pallas kernel it replaces, run in
+    interpret mode, within the JAX test's own tolerance
+    (tests/test_ops.py::test_pallas_rotate_matches_xla_oracle: last-ulp
+    differences, max 1.0 at 0..255)."""
+    from facerec_tpu.ops.pallas_warp import rotate_patches_pallas
+
+    patches, angles, centers = _patch_case()
+    ref = np.asarray(rotate_patches_pallas(jnp.asarray(patches), jnp.asarray(angles),
+                                           jnp.asarray(centers), 96, interpret=True))
+    (oy, wy), (ox, wx), _ = _taps(_t(angles), _t(centers), patches.shape[1])
+    got = _emulate_kernel(_t(patches), oy.long(), wy, ox.long(), wx, 96).numpy()
+    assert got.shape == ref.shape == (4, 96, 96, 3)
+    assert np.abs(got - ref.astype(np.float32)).max() <= 1.0
+
+
+@pytest.mark.parametrize("case", ["random", "zero", "tiny", "clamped", "capped"])
+@pytest.mark.parametrize("p,e", [(64, 48), (40, 40)])
+def test_read_mask_holds_every_value_the_crop_reads(p, e, case):
+    """The patch values ``chip_smoke.k2_read_mask`` leaves out (which the
+    kernel's bytes bound does not count) do not change the crop."""
+    rng = np.random.default_rng(p + e)
+    n = 6
+    patches = torch.from_numpy(rng.uniform(0, 255, (n, p, p, 3)).astype(np.float32))
+    angles, centers = _angles_centers(case, n, p, rng)
+    mask = k2_read_mask(angles, centers, p, e)
+    noise = torch.from_numpy(rng.uniform(0, 255, (n, p, p, 3)).astype(np.float32))
+    ref = tw.rotate_patches(patches, angles, centers, e)
+    got = tw.rotate_patches(torch.where(mask[..., None], patches, noise), angles, centers, e)
+    assert torch.equal(got, ref)
+
+
+@pytest.mark.parametrize("p,e", [(64, 48), (208, 160), (40, 40)])
+def test_read_mask_at_angle_zero(p, e):
+    """Unrotated, the crop reads its own E + 1 rows and columns (the second
+    tap, clipped to the patch)."""
+    mask = k2_read_mask(torch.zeros(2), torch.full((2, 2), (p - 1) / 2.0), p, e)
+    side = min(e + 1, p)
+    assert mask.sum().item() == 2 * side * side
 
 
 def test_rotate_wrapper_on_cpu_is_plain_version():
@@ -125,6 +189,11 @@ def test_rotate_wrapper_on_cpu_is_plain_version():
     b = tw.rotate_patches(_t(patches), _t(angles), _t(centers), 96)
     assert rotate_patches_kernel.launches == before
     assert torch.equal(a, b)
+
+
+def test_rotate_wrapper_on_cpu_empty_batch():
+    out = rotate_patches_kernel(torch.zeros(0, 64, 64, 3), torch.zeros(0), torch.zeros(0, 2), 48)
+    assert out.shape == (0, 48, 48, 3)
 
 
 def test_align_batched_matches_jax():
