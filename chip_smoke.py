@@ -39,7 +39,21 @@ Phases, each of which raises (and so exits nonzero) on failure:
               (``GalleryStore.add_many_device``), as ``bench.py`` runs its
               production scale: launch counts from 0, both kernels launched,
               faces/s and the stage breakdown;
-  6. summary  one JSON line of kernels (time by CUDA events, the kernel's
+  6. train    the port's trainer (``train_model``) on the card with the
+              configuration ``outputs/checkpoints/arcface_synth`` was trained
+              with (full-width ResNet-18 ArcFace, 160 px, batch 32, 16 classes,
+              AdamW + AMSGrad, warmup-cosine, progressive margin, bf16
+              compute), for 6 epochs, on a synthetic ImageFolder of 16 x 40
+              faces (28/6/6 per class) written to a temporary directory: best
+              val accuracy >= 0.5 and the last epoch's train accuracy above the
+              first; one f32 train step on the card against the same step on
+              the CPU (loss and grad_norm within 1e-3 relative); then ms/step
+              and images/s on device-resident batches (CUDA events), model
+              TFLOP/s from the layer shapes, images/s of a whole epoch with
+              loading, the device busy share and the peak memory. This path
+              has no TPU kernel: neither Pallas kernel is reached from
+              ``train_model``;
+  7. summary  one JSON line of kernels (time by CUDA events, the kernel's
               own device time and the wrapper's host time, plain version's
               time, library call's time, bound from this run's inputs,
               launches, error; K1 at three gallery sizes; K2 at forced
@@ -75,6 +89,9 @@ SERVE_ROWS = 1024  # bench.py's default gallery capacity
 MID_ROWS = 131072
 BIG_ROWS = 1 << 20  # bench.py's production gallery capacity
 MAX_NEAR_TIE_SHARE = 1e-3
+TRAIN_EPOCHS = 6  # past the 5-epoch margin warmup
+TRAIN_BAR = 0.5  # best val accuracy; chance is 1/16
+TRAIN_STEP_RTOL = 1e-3  # card against CPU, f32
 
 
 def _card() -> str:
@@ -505,7 +522,7 @@ def serve(dev, frames, capacity: int, enroll, agree: bool = False):
     stats = pipe.benchmark(frames, iters=10, warmup=2)
     x = pipe.upload(frames)
     stages = stage_breakdown(pipe, x)
-    busy = device_busy(pipe, x)
+    busy = device_busy(lambda: pipe.step(x))
     return launches, dict(stats, gallery_rows=capacity, gallery_count=pipe.gallery.count,
                           detected=found, detected_p090=found_090, detected_expected=expected,
                           stages_ms=stages, **busy)
@@ -534,10 +551,10 @@ def enroll_device(seed: int):
     return enroll
 
 
-def device_busy(pipe, x, steps: int = 3) -> dict:
+def device_busy(step, steps: int = 3) -> dict:
     """Share of the wall time the card spends in kernels and copies over
-    ``steps`` serve steps (torch.profiler; the profiler's own host cost
-    lengthens the wall time, so the share is a lower bound), and the
+    ``steps`` calls of ``step`` (torch.profiler; the profiler's own host
+    cost lengthens the wall time, so the share is a lower bound), and the
     kernels that take the most device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -546,17 +563,25 @@ def device_busy(pipe, x, steps: int = 3) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            pipe.step(x)
+            step()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    # the train step's named parts (record_function) show on both timelines;
+    # their spans are not kernel time
+    parts = [e for e in prof.key_averages() if e.key.startswith("train_step.")]
     dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA]
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and not e.key.startswith("train_step.")]
     total_us = sum(e.self_device_time_total for e in dev_events)
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
     out = {"device_busy_share": total_us / wall_us if total_us else None,
            "device_ms_per_step": total_us / steps / 1e3,
            "top_kernels_ms_per_step": {e.key[:80]: e.self_device_time_total / steps / 1e3
                                        for e in top}}
+    if parts:  # host time of each part, under the profiler
+        out["host_ms_per_step_by_part"] = {
+            e.key: e.cpu_time_total / steps / 1e3 for e in parts
+            if e.device_type == torch.autograd.DeviceType.CPU}
     print("profile: " + json.dumps(out), flush=True)
     return out
 
@@ -588,6 +613,184 @@ def stage_breakdown(pipe, x) -> dict:
         }
     print("stage ms: " + json.dumps(out), flush=True)
     return out
+
+
+def arcface_synth_config(epochs: int = TRAIN_EPOCHS):
+    """The configuration ``outputs/checkpoints/arcface_synth`` was trained
+    with, as its ``model_info.json`` records it, for ``epochs`` epochs."""
+    from facerec_torch.config import TrainConfig
+
+    info = json.loads((ROOT / "outputs/checkpoints/arcface_synth/model_info.json").read_text())
+    return TrainConfig.from_dict(info["config"]).replace(epochs=epochs)
+
+
+def train_flops_per_image(model, image: int) -> float:
+    """FLOPs of one image's forward and backward through ``model`` at
+    ``image`` px: 2 per multiply-add of every convolution, dense layer and
+    the class-centre product, from the layer shapes, times 3 for the
+    backward pass."""
+    import torch
+    import torch.nn as nn
+
+    fwd = 0
+
+    def count(m, _, out):
+        nonlocal fwd
+        if isinstance(m, nn.Conv2d):
+            fwd += 2 * out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
+        else:
+            fwd += 2 * out.numel() * m.in_features
+
+    dev = next(model.parameters()).device
+    model.eval()  # the embeddings, without labels
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (nn.Conv2d, nn.Linear))]
+    try:
+        with torch.no_grad():
+            model(torch.zeros(1, image, image, 3, device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    fwd += 2 * model.arc_weight.numel()
+    return 3.0 * fwd
+
+
+def train_step_agrees(dev) -> dict:
+    """One arcface train step (f32, TF32 off, dropout 0) on the card and on
+    the CPU from the same seeded weights and batch: loss and grad_norm
+    within ``TRAIN_STEP_RTOL`` relative."""
+    import numpy as np
+    import torch
+
+    from facerec_torch.data.datasets import _imagenet_normalize
+    from facerec_torch.data.synthetic import make_synthetic_arrays
+    from facerec_torch.models.arcface import ArcFaceNet
+    from facerec_torch.train.state import create_train_state
+    from facerec_torch.train.steps import make_train_step
+
+    cfg = arcface_synth_config()
+    arc = cfg.arcface
+    imgs, labels = make_synthetic_arrays(num_classes=16, per_class=1, size=64, seed=3)
+    batch = {"image": _imagenet_normalize(imgs), "label": labels,
+             "mask": np.ones(len(labels), np.float32)}
+    out = []
+    for d in (dev, torch.device("cpu")):
+        net = ArcFaceNet(num_classes=16, dropout_rate=0.0, margin=arc.margin, scale=arc.scale,
+                         easy_margin=arc.easy_margin, progressive_margin=arc.progressive_margin,
+                         warmup_epochs=arc.warmup_epochs)
+        state = create_train_state(net, cfg, "arcface", d)
+        state.epoch = 2.0
+        m = make_train_step("arcface", "float32")(state, {k: torch.from_numpy(v).to(d)
+                                                            for k, v in batch.items()})
+        out.append({"loss": float(m["loss_sum"] / m["count"]), "grad_norm": float(m["grad_norm"]),
+                    "params": [p.detach().cpu() for p in net.parameters()]})
+    card, cpu = out
+    res = {k: {"card": card[k], "cpu": cpu[k], "rel": abs(card[k] - cpu[k]) / abs(cpu[k])}
+           for k in ("loss", "grad_norm")}
+    res["max_param_diff"] = max((a - b).abs().max().item()
+                                for a, b in zip(card["params"], cpu["params"]))
+    print("train step card vs cpu: " + json.dumps(res), flush=True)
+    if not all(res[k]["rel"] <= TRAIN_STEP_RTOL for k in ("loss", "grad_norm")):
+        raise AssertionError(f"the train step on the card disagrees with the CPU step: {res}")
+    return res
+
+
+def time_train_step(state, batches, steps: int = 20, warmup: int = 5) -> dict:
+    """The train step on device-resident distinct batches after warm-up:
+    ms/step by CUDA events, and the busy share over 3 steps."""
+    from facerec_torch.train.steps import make_train_step
+
+    step = make_train_step("arcface", "bfloat16")
+    i = 0
+
+    def one():
+        nonlocal i
+        step(state, batches[i % len(batches)])
+        i += 1
+
+    ms = _time_ms(one, iters=steps, warmup=warmup)
+    return {"ms_per_step": ms, **device_busy(one)}
+
+
+def train(dev) -> dict:
+    """Phase 6: the trainer at the arcface_synth configuration."""
+    import tempfile
+
+    import PIL
+    import torch
+
+    from facerec_torch.data.datasets import ClassificationBatcher, ImageFolderIndex
+    from facerec_torch.data.synthetic import write_synthetic_imagefolder
+    from facerec_torch.ops.gallery import gallery_topk
+    from facerec_torch.ops.warp_kernel import rotate_patches_kernel
+    from facerec_torch.train.engine import _run_epoch, train_model
+    from facerec_torch.train.steps import make_train_step
+
+    cfg = arcface_synth_config()
+    with tempfile.TemporaryDirectory(prefix="facerec_train_") as td:
+        t0 = time.perf_counter()
+        root = write_synthetic_imagefolder(Path(td) / "ds", num_classes=16, per_class=40,
+                                           size=cfg.image_size, seed=0)
+        print(f"train: wrote 16 x 40 faces of {cfg.image_size} px in "
+              f"{time.perf_counter() - t0:.1f} s (Pillow {PIL.__version__})", flush=True)
+        gallery_topk.launches = 0
+        rotate_patches_kernel.launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        out = train_model(cfg, root, checkpoints_root=Path(td) / "checkpoints",
+                          model_name="arcface_synth_torch", device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated(dev)
+        hist = out["history"]
+        launches = {"gallery_topk": gallery_topk.launches,
+                    "shear_rotate": rotate_patches_kernel.launches}
+        print("train: epochs " + json.dumps([{k: r[k] for k in (
+            "epoch", "train_loss", "train_acc", "val_loss", "val_acc", "lr", "time_elapsed")}
+            for r in hist]), flush=True)
+        if not (len(hist) == cfg.epochs and out["best_val_acc"] >= TRAIN_BAR
+                and hist[-1]["train_acc"] > hist[0]["train_acc"]
+                and all(math.isfinite(r["train_loss"]) for r in hist)):
+            raise AssertionError(f"the arcface_synth configuration did not learn: best val acc "
+                                 f"{out['best_val_acc']} (bar {TRAIN_BAR}), train acc "
+                                 f"{hist[0]['train_acc']} -> {hist[-1]['train_acc']}")
+
+        state = out["state"]
+        index = ImageFolderIndex.build(root / "train")
+        batcher = ClassificationBatcher(index, cfg.batch_size, cfg.image_size, seed=cfg.seed)
+        t0 = time.perf_counter()
+        batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
+                   for b in batcher.epoch(0)]
+        load_s = time.perf_counter() - t0
+        timed = time_train_step(state, batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _run_epoch(make_train_step("arcface", cfg.compute_dtype), state, batcher, dev, 0, True,
+                   prefetch=cfg.prefetch_depth)
+        epoch_s = time.perf_counter() - t0
+    agree = train_step_agrees(dev)
+    flops = train_flops_per_image(state.model, cfg.image_size) * cfg.batch_size
+    tflops = flops / (timed["ms_per_step"] * 1e-3) / 1e12
+    stats = {
+        "route": "write_synthetic_imagefolder + train_model (ClassificationBatcher, PIL)",
+        "epochs": len(hist), "steps": state.step, "best_val_acc": out["best_val_acc"],
+        "test_acc": out.get("test_acc"), "train_acc_first_last": [hist[0]["train_acc"],
+                                                                  hist[-1]["train_acc"]],
+        "train_model_s": train_s, "epoch_s": [r["time_elapsed"] for r in hist],
+        "ms_per_step": timed["ms_per_step"],
+        "images_per_s": cfg.batch_size / (timed["ms_per_step"] * 1e-3),
+        "gflop_per_step": flops / 1e9, "model_tflops": tflops,
+        "bf16_peak_share": tflops / (BF16_TC_FLOPS / 1e12),
+        "epoch_images_per_s_with_loading": len(index) / epoch_s,
+        "loading_alone_images_per_s": len(index) / load_s,
+        "device_busy_share": timed["device_busy_share"],
+        "device_ms_per_step": timed["device_ms_per_step"],
+        "host_ms_per_step_by_part": timed.get("host_ms_per_step_by_part"),
+        "top_kernels_ms_per_step": timed["top_kernels_ms_per_step"],
+        "peak_memory_gb": peak / 2**30, "launches_of_port_kernels": launches,
+        "card_vs_cpu": {k: agree[k]["rel"] for k in ("loss", "grad_norm")},
+    }
+    return stats
 
 
 def k2_tilings(k2_in, blocks_per_sm=(2, 1), segments=(1, 2, 3, 4)) -> list[dict]:
@@ -706,6 +909,8 @@ def main() -> int:
             "host_sec_per_batch", "detected", "detected_p090", "detected_expected",
             "stages_ms", "device_busy_share")} | {"card": card}), flush=True)
         torch.cuda.empty_cache()
+    print("train: " + json.dumps(train(dev) | {"card": card}), flush=True)
+    torch.cuda.empty_cache()
     rows = kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches)
     print(json.dumps({"kernels": rows, "card": card}), flush=True)
     print(card, flush=True)

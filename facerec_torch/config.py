@@ -1,22 +1,77 @@
-"""Serve configuration and path constants (a copy of the parts of
-``facerec_tpu/config.py`` the serve step needs, so the port never imports
-the JAX package)."""
+"""Serve and train configuration and path constants (a copy of the parts of
+``facerec_tpu/config.py`` the serve step and the trainer need, so the port
+never imports the JAX package)."""
 
 from __future__ import annotations
 
+import dataclasses
+import logging
 import os
-from dataclasses import dataclass
+import typing
+from dataclasses import dataclass, field
 from pathlib import Path
+from typing import Any
 
 PROJECT_ROOT = Path(os.environ.get("FACEREC_ROOT", Path(__file__).resolve().parent.parent))
 OUTPUTS_DIR = PROJECT_ROOT / "outputs"
 CHECKPOINTS_DIR = OUTPUTS_DIR / "checkpoints"
 FACE_REFERENCES_DIR = PROJECT_ROOT / "face_references"
 
+# Training defaults (reference src/base_config.py:32-35)
+DEFAULT_BATCH_SIZE = 16
+DEFAULT_EPOCHS = 50
+DEFAULT_LR = 1e-3
+IMG_SIZE = 224
+
+logger = logging.getLogger("facerec_torch")
+if not logger.handlers:
+    _h = logging.StreamHandler()
+    _h.setFormatter(logging.Formatter("%(asctime)s [%(levelname)s] %(name)s: %(message)s"))
+    logger.addHandler(_h)
+    logger.setLevel(logging.INFO)
+
 # Cascade thresholds: calibrated for the committed self-trained detector
 # weights, classic for facenet-pytorch's pretrained ones.
 CALIBRATED_DETECTION_THRESHOLDS: tuple[float, float, float] = (0.5, 0.5, 0.55)
 CLASSIC_DETECTION_THRESHOLDS: tuple[float, float, float] = (0.6, 0.7, 0.7)
+
+
+class _DictMixin:
+    """``to_dict`` / ``from_dict`` over nested dataclasses, as the JAX
+    package's configs round-trip (``model_info.json`` stores ``to_dict``),
+    and ``replace``."""
+
+    def to_dict(self) -> dict[str, Any]:
+        out = {}
+        for f in dataclasses.fields(self):
+            v = getattr(self, f.name)
+            if dataclasses.is_dataclass(v) and not isinstance(v, type):
+                v = v.to_dict() if isinstance(v, _DictMixin) else dataclasses.asdict(v)
+            elif isinstance(v, tuple):
+                v = list(v)
+            elif isinstance(v, Path):
+                v = str(v)
+            out[f.name] = v
+        return out
+
+    @classmethod
+    def from_dict(cls, d: dict[str, Any]):
+        kwargs = {}
+        hints = typing.get_type_hints(cls)
+        for f in dataclasses.fields(cls):
+            if f.name not in d:
+                continue
+            v = d[f.name]
+            ftype = hints[f.name]
+            if isinstance(ftype, type) and issubclass(ftype, _DictMixin) and isinstance(v, dict):
+                v = ftype.from_dict(v)
+            elif isinstance(v, list):
+                v = tuple(v)
+            kwargs[f.name] = v
+        return cls(**kwargs)
+
+    def replace(self, **kwargs):
+        return dataclasses.replace(self, **kwargs)
 
 
 @dataclass(frozen=True)
@@ -32,3 +87,91 @@ class ServeConfig:
     top_k: int = 5
     max_faces: int = 16  # static per-frame face capacity
     gallery_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class MeshConfig(_DictMixin):
+    """Device-mesh layout. The port trains on one device: a ``data_parallel``
+    or ``model_parallel`` above 1 is refused by the trainer (the mesh path
+    is ROADMAP work); -1, "every device", means the one device here."""
+
+    data_axis: str = "data"
+    model_axis: str = "model"
+    data_parallel: int = -1
+    model_parallel: int = 1
+
+
+@dataclass(frozen=True)
+class OptimizerConfig(_DictMixin):
+    name: str = "adam"  # adam | adamw | radam | sgd
+    learning_rate: float = DEFAULT_LR
+    weight_decay: float = 1e-4
+    amsgrad: bool = False
+    momentum: float = 0.9
+    beta1: float = 0.9
+    beta2: float = 0.999
+    grad_clip_norm: float = 1.0  # model-aware defaults applied by the trainer
+    use_grad_clip: bool = True
+
+
+@dataclass(frozen=True)
+class SchedulerConfig(_DictMixin):
+    """LR schedule (reference training_utils.py:74-148 + warmup training.py:158-180)."""
+
+    name: str = "cosine"  # cosine | step | exponential | plateau | one_cycle | warmup_cosine | constant
+    warmup_epochs: int = 0
+    step_size: int = 10
+    gamma: float = 0.1
+    min_lr: float = 1e-6
+    plateau_patience: int = 5
+    plateau_factor: float = 0.5
+    one_cycle_max_lr: float | None = None
+
+
+@dataclass(frozen=True)
+class ArcFaceConfig(_DictMixin):
+    """ArcMarginProduct behaviour (reference face_models.py:297-445)."""
+
+    margin: float = 0.5
+    scale: float = 32.0
+    easy_margin: bool = True
+    progressive_margin: bool = True
+    warmup_epochs: int = 10  # margin/scale ramp length
+    two_phase: bool = True
+    two_phase_epoch: int = -1  # -1 => max(10, epochs // 3)
+    label_smoothing: float = 0.05
+
+
+@dataclass(frozen=True)
+class TrainConfig(_DictMixin):
+    model_type: str = "baseline"
+    model_name: str | None = None
+    batch_size: int = DEFAULT_BATCH_SIZE
+    epochs: int = DEFAULT_EPOCHS
+    image_size: int = IMG_SIZE
+    num_classes: int = 0  # inferred from the dataset when 0
+    seed: int = 42
+    optimizer: OptimizerConfig = field(default_factory=OptimizerConfig)
+    scheduler: SchedulerConfig = field(default_factory=SchedulerConfig)
+    arcface: ArcFaceConfig = field(default_factory=ArcFaceConfig)
+    mesh: MeshConfig = field(default_factory=MeshConfig)
+    # Early stopping on val loss (reference training_utils.py:18-71)
+    early_stopping: bool = True
+    patience: int = 10
+    min_delta: float = 0.0
+    # Precision policy: bf16 compute (autocast), f32 parameters and reductions.
+    compute_dtype: str = "bfloat16"
+    param_dtype: str = "float32"
+    # Loop caps; 0 = uncapped.
+    max_train_batches: int = 0
+    max_val_batches: int = 0
+    max_test_batches: int = 0
+    use_lr_finder: bool = False
+    label_smoothing: float = 0.1
+    checkpoint_every: int = 1
+    keep_checkpoints: int = 3
+    resume: bool = False
+    dropout_rate: float | None = None  # override the model default when set
+    # Host input pipeline
+    prefetch_depth: int = 2
+    shuffle_buffer: int = 2048

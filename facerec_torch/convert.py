@@ -3,11 +3,15 @@
 ``from_jax(tree, which)`` takes a nested mapping of arrays (numpy or
 anything ``np.asarray`` reads) as the JAX package stores it, either a bare
 ``params`` tree (the MTCNN ``.npz`` files) or ``{"params", "batch_stats"}``
-(the embedder), and returns a ``{key: torch.Tensor}`` state dict for
-``which`` in pnet/rnet/onet/arcface. Conv kernels go HWIO -> OIHW, dense
-kernels [in, out] -> [out, in]. No row permutation is needed before the
+(the embedder, and the models the trainer trains, whose statistics may come
+from ``apply(..., mutable=["batch_stats"])``), and returns a
+``{key: torch.Tensor}`` state dict for ``which`` in
+pnet/rnet/onet/arcface/baseline. Conv kernels go HWIO -> OIHW, dense
+kernels [in, out] -> [out, in]; ArcFace's class centres ``arc_weight``
+[C, D] carry over as they are. No row permutation is needed before the
 R-Net/O-Net dense layers because the port flattens their feature maps in
-NHWC order, as the JAX nets do.
+NHWC order, as the JAX nets do. A gradient tree has the parameters' shape,
+so it carries over the same way.
 """
 
 from __future__ import annotations
@@ -83,6 +87,13 @@ def from_jax(tree: Mapping[str, Any], which: str) -> dict[str, torch.Tensor]:
         _resnet18(params["backbone"], stats["backbone"], out, "backbone.")
         _dense(params["embedding"], out, "embedding")
         _bn(params["bn"], stats["bn"], out, "bn")
+        out["arc_weight"] = _t(params["arc_weight"])
+    elif which == "baseline":
+        for i in (1, 2, 3):
+            _conv(params[f"conv{i}"], out, f"conv{i}")
+            _bn(params[f"bn{i}"], stats[f"bn{i}"], out, f"bn{i}")
+        _dense(params["fc1"], out, "fc1")
+        _dense(params["fc2"], out, "fc2")
     else:
         raise ValueError(f"no converter for {which!r}")
     return out

@@ -1,0 +1,127 @@
+"""Device input pipeline (counterpart of ``facerec_tpu/data/pipeline.py``):
+a background thread loads the next batches while the card computes, copies
+each through pinned host memory to the card on a side stream, and the
+consumer's stream waits for that copy before it uses the batch.
+"""
+
+from __future__ import annotations
+
+import queue
+import threading
+from typing import Any, Iterable, Iterator
+
+import numpy as np
+import torch
+
+from facerec_torch import resolve_device
+
+
+def _put(q: queue.Queue, item, stop: threading.Event) -> bool:
+    """Put ``item`` unless the consumer has gone; returns False if it has."""
+    while not stop.is_set():
+        try:
+            q.put(item, timeout=0.05)
+            return True
+        except queue.Full:
+            continue
+    return False
+
+
+def prefetch_to_device(
+    it: Iterable[dict],
+    device: str | torch.device | None = None,
+    depth: int = 2,
+) -> Iterator[dict[str, torch.Tensor]]:
+    """Iterate ``it`` (dicts of numpy arrays) on a background thread,
+    keeping up to ``depth`` batches on ``device`` (default: the CUDA card)
+    ahead of the consumer. An error raised by ``it`` re-raises in the
+    consumer; a consumer that stops early stops the thread."""
+    dev = resolve_device(device)
+    stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+    q: queue.Queue = queue.Queue(maxsize=depth)
+    end = object()
+    err: list[BaseException] = []
+    stop = threading.Event()
+
+    def _producer():
+        try:
+            for batch in it:
+                host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
+                if stream is None:
+                    item = (host, None)
+                else:
+                    with torch.cuda.device(dev), torch.cuda.stream(stream):
+                        moved = {k: t.pin_memory().to(dev, non_blocking=True)
+                                 for k, t in host.items()}
+                        ready = torch.cuda.Event()
+                        ready.record(stream)
+                    item = (moved, ready)
+                if not _put(q, item, stop):
+                    return
+        except BaseException as e:  # re-raised in the consumer
+            err.append(e)
+        finally:
+            _put(q, end, stop)
+
+    thread = threading.Thread(target=_producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            item = q.get()
+            if item is end:
+                if err:
+                    raise err[0]
+                return
+            batch, ready = item
+            if ready is not None:
+                current = torch.cuda.current_stream(dev)
+                current.wait_event(ready)
+                for t in batch.values():
+                    t.record_stream(current)
+            yield batch
+    finally:
+        stop.set()
+        thread.join(timeout=60)
+
+
+class InMemoryBatcher:
+    """Batches over in-memory arrays (synthetic datasets, benchmarks), with
+    the final partial batch padded and masked."""
+
+    def __init__(self, arrays: dict[str, Any], batch_size: int, shuffle: bool = True, seed: int = 0):
+        self.arrays = arrays
+        n = len(next(iter(arrays.values())))
+        if any(len(v) != n for v in arrays.values()):
+            raise ValueError("arrays differ in length")
+        self.n = n
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        self._epoch = 0
+
+    def __len__(self):
+        return -(-self.n // self.batch_size)
+
+    def epoch(self, epoch: int | None = None):
+        if epoch is None:
+            epoch = self._epoch
+            self._epoch += 1
+        order = np.arange(self.n)
+        if self.shuffle:
+            np.random.default_rng((self.seed, epoch)).shuffle(order)
+        bs = self.batch_size
+        for s in range(0, self.n, bs):
+            idx = order[s : s + bs]
+            batch = {k: v[idx] for k, v in self.arrays.items()}
+            mask = np.ones(len(idx), np.float32)
+            if len(idx) < bs:
+                pad = bs - len(idx)
+                batch = {
+                    k: np.concatenate([v, np.zeros((pad, *v.shape[1:]), v.dtype)]) for k, v in batch.items()
+                }
+                mask = np.concatenate([mask, np.zeros(pad, np.float32)])
+            batch["mask"] = mask
+            yield batch
+
+    def __iter__(self):
+        return self.epoch()

@@ -1,13 +1,17 @@
-"""Synthetic face frames for the serve step (copied from
-``facerec_tpu/data/synthetic.py``: ``_identity_params``, ``render_face_photo``
-and their helpers, numpy and PIL only) plus ``face_frames``, the frame
-renderer ``bench.py`` uses. One change: the hair style is drawn with crc32
-instead of ``hash()``, so the same seed renders the same frames in every
-process."""
+"""Synthetic faces (copied from ``facerec_tpu/data/synthetic.py``, numpy
+and PIL only): the serve step's frames (``_identity_params``,
+``render_face_photo`` and their helpers, plus ``face_frames``, the frame
+renderer ``bench.py`` uses) and the trainer's identity datasets
+(``render_face``, ``make_synthetic_arrays``, ``write_synthetic_imagefolder``).
+One change: the photo renderer draws the hair style with crc32 instead of
+``hash()``, so the same seed renders the same frames in every process.
+``render_face`` draws nothing from a hash, so its images equal the JAX
+package's for a seed as they are."""
 
 from __future__ import annotations
 
 import zlib
+from pathlib import Path
 
 import numpy as np
 
@@ -243,3 +247,89 @@ def face_frames(batch: int, frame_hw: tuple[int, int], faces_per_frame: int,
             a = alpha[..., None]
             frames[b, oy:oy + size, ox:ox + size] = a * face * 255.0 + (1 - a) * region
     return frames
+
+
+def render_face(params: dict, size: int, jitter_rng: np.random.Generator | None = None) -> np.ndarray:
+    """Render one uint8 HWC flat-shaded face for an identity, with optional
+    pose and lighting jitter."""
+    shift = np.zeros(2)
+    light = 1.0
+    if jitter_rng is not None:
+        shift = jitter_rng.uniform(-0.05, 0.05, size=2)
+        light = jitter_rng.uniform(0.8, 1.2)
+    ys, xs = np.mgrid[0:size, 0:size].astype(np.float32)
+    # normalized coords in [-0.5, 0.5]
+    u = xs / size - 0.5 - shift[0]
+    v = ys / size - 0.5 - shift[1]
+
+    img = np.full((size, size, 3), 0.12, np.float32)
+    img[v < params["hair_top"]] = params["hair_col"]
+    # face ellipse: with the wide skin-luminance draw, scale the per-channel
+    # draw to the target luminance, keeping its hue as an identity cue; the
+    # scale is capped so that no channel clips
+    skin = np.asarray(params["skin"], np.float32)
+    if params.get("skin_lum") is not None:
+        base = float(params["skin_lum"])
+        scale = min(base / max(float(skin.mean()), 1e-3),
+                    1.0 / max(float(skin.max()), 1e-3))
+        skin = np.clip(skin * scale, 0.05, 1.0)
+    face = (u / params["face_ax"]) ** 2 + (v / params["face_ay"]) ** 2 <= 1.0
+    img[face] = skin
+    for sx in (-1.0, 1.0):
+        eye = (u - sx * params["eye_dx"]) ** 2 + (v - params["eye_y"]) ** 2 <= params["eye_r"] ** 2
+        img[eye] = params["eye_col"]
+    mouth = ((u / params["mouth_w"]) ** 2 + ((v - params["mouth_y"]) / params["mouth_h"]) ** 2) <= 1.0
+    img[mouth] = np.array([0.55, 0.2, 0.2], np.float32)
+    img = np.clip(img * light, 0.0, 1.0)
+    if jitter_rng is not None:
+        img = np.clip(img + jitter_rng.normal(0, 0.02, img.shape).astype(np.float32), 0.0, 1.0)
+    return (img * 255).astype(np.uint8)
+
+
+def make_synthetic_arrays(
+    num_classes: int = 4, per_class: int = 8, size: int = 64, seed: int = 0,
+    skin_lum_range: tuple[float, float] | None = (0.25, 1.0),
+) -> tuple[np.ndarray, np.ndarray]:
+    """In-memory dataset: (images [N,H,W,3] uint8, labels [N] int32), the
+    wide skin-luminance draw by default (None for the light/medium one)."""
+    rng = np.random.default_rng(seed)
+    ids = [_identity_params(rng, skin_lum_range=skin_lum_range) for _ in range(num_classes)]
+    imgs, labels = [], []
+    for c, p in enumerate(ids):
+        for i in range(per_class):
+            jr = np.random.default_rng(seed * 10_000 + c * 100 + i)
+            imgs.append(render_face(p, size, jr))
+            labels.append(c)
+    return np.stack(imgs), np.asarray(labels, np.int32)
+
+
+def write_synthetic_imagefolder(
+    root: str | Path,
+    num_classes: int = 4,
+    per_class: int = 9,
+    size: int = 64,
+    seed: int = 0,
+    splits: tuple[tuple[str, float], ...] = (("train", 0.7), ("val", 0.15), ("test", 0.15)),
+    skin_lum_range: tuple[float, float] | None = (0.25, 1.0),
+) -> Path:
+    """Write ``<root>/<split>/person_<c>/*.jpg`` (70/15/15 per person by
+    default; at least one image per later split), the layout
+    ``ImageFolderIndex`` reads."""
+    from PIL import Image
+
+    root = Path(root)
+    rng = np.random.default_rng(seed)
+    ids = [_identity_params(rng, skin_lum_range=skin_lum_range) for _ in range(num_classes)]
+    for c, p in enumerate(ids):
+        person = f"person_{c:03d}"
+        counts = [max(1, int(round(per_class * frac))) for _, frac in splits]
+        counts[0] = per_class - sum(counts[1:])
+        i = 0
+        for (split, _), n in zip(splits, counts):
+            d = root / split / person
+            d.mkdir(parents=True, exist_ok=True)
+            for _ in range(n):
+                jr = np.random.default_rng(seed * 10_000 + c * 100 + i)
+                Image.fromarray(render_face(p, size, jr)).save(d / f"{person}_{i:04d}.jpg", quality=92)
+                i += 1
+    return root

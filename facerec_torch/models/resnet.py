@@ -1,9 +1,13 @@
-"""ResNet-18 trunk, eval mode (counterpart of ``facerec_tpu/models/resnet.py``).
+"""ResNet-18 trunk (counterpart of ``facerec_tpu/models/resnet.py``).
 
 State-dict keys follow torchvision (``conv1``, ``bn1``,
 ``layer{1-4}.{0,1}.{conv1,bn1,conv2,bn2,downsample.0,downsample.1}``).
 Public inputs are NHWC like the JAX model; inside, the tensor is NCHW in
-``channels_last`` memory, the layout cuDNN prefers.
+``channels_last`` memory on the card, the layout cuDNN prefers.
+
+In training mode (``module.train()``) BatchNorm normalises with the
+batch's statistics and updates the running ones as Flax's ``BatchNorm``
+does (``BatchNorm`` below); in eval mode it uses the running statistics.
 """
 
 from __future__ import annotations
@@ -13,17 +17,44 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 
+class BatchNorm(nn.BatchNorm2d):
+    """BatchNorm over dim 1 (of [N, C] or [N, C, H, W]) with Flax's train
+    mode: running = 0.9 * running + 0.1 * batch, with the *biased* batch
+    variance (``nn.BatchNorm2d`` keeps momentum 0.1 on the batch value too,
+    but takes the unbiased variance). Same parameters and buffers as
+    ``nn.BatchNorm2d``, so state dicts carry over. Eval mode is
+    ``F.batch_norm`` with the running statistics. The mode is
+    ``self.training``."""
+
+    MOMENTUM = 0.9  # Flax's: the weight of the old running value
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
+                                False, 0.0, self.eps)
+        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                                  True, 0.0, self.eps)
+        with torch.no_grad():
+            # the kernel returns 1/sqrt(var + eps) of the biased variance
+            dt = self.running_mean.dtype
+            var = invstd.to(dt).pow(-2).sub_(self.eps)
+            self.running_mean.lerp_(mean.to(dt), 1.0 - self.MOMENTUM)
+            self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 class BasicBlock(nn.Module):
     def __init__(self, cin: int, cout: int, stride: int = 1):
         super().__init__()
         self.conv1 = nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
-        self.bn1 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn1 = BatchNorm(cout, eps=1e-5)
         self.conv2 = nn.Conv2d(cout, cout, 3, padding=1, bias=False)
-        self.bn2 = nn.BatchNorm2d(cout, eps=1e-5)
+        self.bn2 = BatchNorm(cout, eps=1e-5)
         self.downsample = None
         if stride != 1 or cin != cout:
             self.downsample = nn.Sequential(
-                nn.Conv2d(cin, cout, 1, stride=stride, bias=False), nn.BatchNorm2d(cout, eps=1e-5))
+                nn.Conv2d(cin, cout, 1, stride=stride, bias=False), BatchNorm(cout, eps=1e-5))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         idn = x if self.downsample is None else self.downsample(x)
@@ -39,7 +70,7 @@ class ResNet18(nn.Module):
     def __init__(self, width: int = 64):
         super().__init__()
         self.conv1 = nn.Conv2d(3, width, 7, stride=2, padding=3, bias=False)
-        self.bn1 = nn.BatchNorm2d(width, eps=1e-5)
+        self.bn1 = BatchNorm(width, eps=1e-5)
         chans = [width, width * 2, width * 4, width * 8]
         for li, c in enumerate(chans, start=1):
             cin = width if li == 1 else chans[li - 2]

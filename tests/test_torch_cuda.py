@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+"""The port's CUDA kernels against their plain PyTorch versions, and the
+port's trainer against its CPU run, on the card.
 
 These tests need an NVIDIA card and ``nvcc``; without them they skip. On the
 card: ``python -m pytest tests/test_torch_cuda.py -m cuda``."""
@@ -8,11 +9,16 @@ import math
 import pytest
 import torch
 
-from chip_smoke import K2_CASES, k2_case
+from chip_smoke import K2_CASES, TRAIN_STEP_RTOL, k2_case, train_step_agrees
+from facerec_torch.config import ArcFaceConfig, OptimizerConfig, SchedulerConfig, TrainConfig
+from facerec_torch.data.synthetic import write_synthetic_imagefolder
+from facerec_torch.models.arcface import build_embedder
+from facerec_torch.ops.arcface import cosine_logits
 from facerec_torch.ops.gallery import (bf16_rows_per_split, bf16_splits, gallery_topk,
                                        gallery_topk_plain)
 from facerec_torch.ops.warp_fast import rotate_patches
 from facerec_torch.ops.warp_kernel import rotate_patches_kernel, rotate_patches_tiled
+from facerec_torch.train.engine import train_model
 
 pytestmark = pytest.mark.cuda
 
@@ -211,3 +217,56 @@ def test_rotate_kernel_empty_batch(dev):
     out = rotate_patches_kernel(torch.zeros(0, 208, 208, 3, device=dev), torch.zeros(0, device=dev),
                                 torch.zeros(0, 2, device=dev), 160)
     assert out.shape == (0, 160, 160, 3) and rotate_patches_kernel.launches == before
+
+
+@pytest.fixture
+def no_tf32():
+    prev = torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    yield
+    torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = prev
+
+
+def test_train_step_on_the_card_matches_the_cpu(dev, no_tf32):
+    """chip_smoke's check: one f32 arcface step, dropout 0, loss and
+    grad_norm within 1e-3 relative of the CPU's."""
+    res = train_step_agrees(dev)
+    assert res["loss"]["rel"] <= TRAIN_STEP_RTOL and res["grad_norm"]["rel"] <= TRAIN_STEP_RTOL
+
+
+def test_cosine_product_refuses_tf32(dev):
+    """The margin head's cosine product is full f32: with TF32 matrix
+    products on it raises instead of flipping the process-wide flag."""
+    x, w = torch.randn(4, 8, device=dev), torch.randn(3, 8, device=dev)
+    prev = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            cosine_logits(x, w)
+        assert torch.backends.cuda.matmul.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        assert cosine_logits(x, w).shape == (4, 3)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = prev
+
+
+def test_train_model_on_the_card(dev, tmp_path):
+    """A short bf16 arcface run of ``train_model`` on the card writes its
+    artifacts, and its final checkpoint serves on the card."""
+    root = write_synthetic_imagefolder(tmp_path / "ds", num_classes=4, per_class=9, size=64, seed=7)
+    cfg = TrainConfig(model_type="arcface", batch_size=8, epochs=2, image_size=64, seed=0,
+                      early_stopping=False, checkpoint_every=1,
+                      arcface=ArcFaceConfig(margin=0.3, scale=16.0, two_phase=False, warmup_epochs=5),
+                      optimizer=OptimizerConfig(name="adamw", amsgrad=True, learning_rate=5e-4),
+                      scheduler=SchedulerConfig(name="warmup_cosine", warmup_epochs=1))
+    out = train_model(cfg, root, checkpoints_root=tmp_path / "ck", model_name="m", device=dev)
+    assert len(out["history"]) == 2 and all(math.isfinite(r["train_loss"]) for r in out["history"])
+    assert out["state"].step == 2 * 4 and next(out["model"].parameters()).is_cuda
+    model_dir = tmp_path / "ck" / "m"
+    assert (model_dir / "final").exists() and (model_dir / "epoch_1").exists()
+    emb = build_embedder(checkpoint=model_dir / "final", device=dev)
+    got = emb.embed(torch.rand(3, 64, 64, 3, device=dev) * 255)
+    assert got.shape == (3, 512) and torch.isfinite(got).all()
