@@ -5,7 +5,9 @@
 Phases, each of which raises (and so exits nonzero) on failure:
 
   1. build    every CUDA kernel of the serve step from ``facerec_torch/csrc``
-              (one ``nvcc`` per source, all at once);
+              (one ``nvcc`` per source, all at once), and the host JPEG loader
+              (``csrc/loader.cpp``) with ``g++``; a loader that does not build
+              prints the compiler's error and leaves the trainer on PIL;
   2. K1       the gallery top-k kernel against its plain PyTorch version fed
               the queries as the kernel rounds them (to the gallery dtype):
               the serve shape (384 x 1024 x 512, bf16 gallery, count 512),
@@ -39,6 +41,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
               (``GalleryStore.add_many_device``), as ``bench.py`` runs its
               production scale: launch counts from 0, both kernels launched,
               faces/s and the stage breakdown;
+     serve_precise  the 1,024-row step with ``precise_align=True`` (the exact
+              gather warp; K1 launched, K2 not): faces/s, stage ms and fill,
+              and against the fast path on the same frames the same valid
+              slots and embedding cosine > 0.98 where the eye angle is within
+              +-15 degrees. On each serve path, each kernel it launched is
+              held against its plain version on the inputs that path gave it;
   6. train    the port's trainer (``train_model``) on the card with the
               configuration ``outputs/checkpoints/arcface_synth`` was trained
               with (full-width ResNet-18 ArcFace, 160 px, batch 32, 16 classes,
@@ -50,9 +58,23 @@ Phases, each of which raises (and so exits nonzero) on failure:
               the CPU (loss and grad_norm within 1e-3 relative); then ms/step
               and images/s on device-resident batches (CUDA events), model
               TFLOP/s from the layer shapes, images/s of a whole epoch with
-              loading, the device busy share and the peak memory. This path
-              has no TPU kernel: neither Pallas kernel is reached from
-              ``train_model``;
+              loading, the device busy share and the peak memory; which
+              batcher the trainer took (``loader``: native or pil) and each
+              batcher's images/s alone, native then PIL, on the same tree.
+              This path has no TPU kernel: neither Pallas kernel is reached
+              from ``train_model``;
+     eval     ``evaluate_model`` on the checkpoint the train phase wrote, on
+              its test split (16 x 6 images of 160 px, default bf16 compute):
+              accuracy >= the train bar, ROC-AUC, ms/batch and images/s;
+              ``predict_image`` on 8 test images gives ``evaluate_model``'s
+              argmax for each. No TPU kernel either;
+     demo     ``measure_demo_fps(40)`` through ``build_default_pipeline`` on
+              480 x 640 synthetic camera frames (the committed detector
+              weights, batch-1 packed steps): pipelined and serial fps, frame
+              ms; ``process_demo`` + ``faces_from_packed`` against
+              ``identify`` on two frames; both kernels held on the demo's
+              inputs; and ``benchmark_transfer`` (a fresh uint8 upload per
+              step) beside ``benchmark`` at bench.py's configuration;
   7. summary  one JSON line of kernels (time by CUDA events, the kernel's
               own device time and the wrapper's host time, plain version's
               time, library call's time, bound from this run's inputs,
@@ -92,6 +114,8 @@ MAX_NEAR_TIE_SHARE = 1e-3
 TRAIN_EPOCHS = 6  # past the 5-epoch margin warmup
 TRAIN_BAR = 0.5  # best val accuracy; chance is 1/16
 TRAIN_STEP_RTOL = 1e-3  # card against CPU, f32
+PRECISE_COS = 0.98  # fast against exact align within +-15 degrees (tests/test_ops.py)
+DEMO_FRAMES = 40
 
 
 def _card() -> str:
@@ -416,7 +440,7 @@ def check_k2(dev):
     return serve_in, worst
 
 
-def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg):
+def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg, precise_align=False):
     import torch
 
     from facerec_torch.config import ServeConfig
@@ -430,7 +454,8 @@ def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg):
                 dtype=dtype, input_range="255", device=dev)
     det.load_jax_params(load_detector_params())
     emb = build_embedder(dtype=dtype, seed=1, device=dev)
-    return FacePipeline(cfg, frame_hw, det, emb, embed_dim=512, device=dev)
+    return FacePipeline(cfg, frame_hw, det, emb, embed_dim=512, device=dev,
+                        precise_align=precise_align)
 
 
 def small_input_agrees(dev) -> None:
@@ -465,18 +490,87 @@ def small_input_agrees(dev) -> None:
         raise AssertionError("the step on the card disagrees with the CPU step on a small input")
 
 
-def serve(dev, frames, capacity: int, enroll, agree: bool = False):
-    """Phases 4 and 5: the serve step at bench.py's configuration with a
-    bf16 gallery of ``capacity`` rows, half filled by ``enroll(pipe, n)``.
-    Returns the kernels' launches in one step and step stats."""
-    import numpy as np
-    import torch
-
+def _zero_launches() -> None:
     from facerec_torch.ops.gallery import gallery_topk
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
+    gallery_topk.launches = 0
+    rotate_patches_kernel.launches = 0
+
+
+def _launches() -> dict:
+    from facerec_torch.ops.gallery import gallery_topk
+    from facerec_torch.ops.warp_kernel import rotate_patches_kernel
+
+    return {"gallery_topk": gallery_topk.launches, "shear_rotate": rotate_patches_kernel.launches}
+
+
+def hold_path_kernels(path: str, pipe, x, r) -> dict:
+    """Each kernel a serve path launched, against its plain version on the
+    inputs that path gave it: K1 on the step's embeddings, gallery and count
+    (``_k1_case``'s bars); K2 (fast align only) bit for bit on the patches,
+    angles and centres that the step's boxes and landmarks give. Returns the
+    max abs error of each."""
+    import torch
+
+    from facerec_torch.ops.warp_fast import _align_prep, rotate_patches
+    from facerec_torch.ops.warp_kernel import rotate_patches_kernel
+
+    cfg = pipe.config
+    q = r.embeddings.reshape(-1, r.embeddings.shape[-1]).float()
+    err = {"gallery_topk": _k1_case(path, q, pipe.gallery.embeddings, pipe.gallery.count,
+                                    cfg.top_k, 2e-3)[0]}
+    if not pipe.precise_align:
+        lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)
+        patches, angle, centers = _align_prep(x.float(), r.boxes, lm, cfg.embed_size, 0.15)
+        args = (patches.reshape(-1, *patches.shape[2:]), angle.reshape(-1),
+                centers.reshape(-1, 2), cfg.embed_size)
+        got, ref = rotate_patches_kernel(*args), rotate_patches(*args)
+        exact = torch.equal(got, ref)
+        err["shear_rotate"] = (got.float() - ref.float()).abs().max().item()
+        print(f"K2 {path}: N={args[0].shape[0]} P={args[0].shape[1]} bit_exact={exact}",
+              flush=True)
+        if not exact:
+            raise AssertionError(f"K2 disagrees with its plain version on the {path} path")
+    return err
+
+
+def precise_agrees(pipe, frames, r) -> dict:
+    """The precise step's result ``r`` against the fast path on the same
+    frames: the same valid slots, and embedding cosine > ``PRECISE_COS`` for
+    the faces whose eye angle lies within +-15 degrees."""
+    import torch
+
+    pipe.precise_align = False
+    try:
+        fast = pipe.process(frames)
+    finally:
+        pipe.precise_align = True
+    lm = r.landmarks.float()
+    angle = torch.rad2deg(torch.atan2(lm[..., 1, 1] - lm[..., 0, 1], lm[..., 1, 0] - lm[..., 0, 0]))
+    held = r.valid & (angle.abs() <= 15.0)
+    cos = (r.embeddings * fast.embeddings).sum(-1)[held]
+    out = {"same_valid": bool(torch.equal(r.valid, fast.valid)), "faces_within_15deg": int(held.sum()),
+           "faces_valid": int(r.valid.sum()), "min_cos": cos.min().item() if cos.numel() else None,
+           "median_cos": cos.median().item() if cos.numel() else None}
+    print("serve_precise against fast: " + json.dumps(out), flush=True)
+    if not (out["same_valid"] and cos.numel() and out["min_cos"] > PRECISE_COS):
+        raise AssertionError(f"the precise step disagrees with the fast path: {out}")
+    return out
+
+
+def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
+          precise: bool = False):
+    """Phases 4 and 5 (and serve_precise): the serve step at bench.py's
+    configuration with a bf16 gallery of ``capacity`` rows, half filled by
+    ``enroll(pipe, n)``. Returns the kernels' launches in one step, step
+    stats and the pipeline."""
+    import numpy as np
+    import torch
+
     pipe = build_pipeline(dev, FRAME_HW, FACES, torch.bfloat16,
-                          dict(gallery_capacity=capacity, top_k=5, embed_size=160))
+                          dict(gallery_capacity=capacity, top_k=5, embed_size=160),
+                          precise_align=precise)
     n_ids = capacity // 2
     t0 = time.perf_counter()
     enroll(pipe, n_ids)
@@ -488,15 +582,15 @@ def serve(dev, frames, capacity: int, enroll, agree: bool = False):
     torch.cuda.synchronize()
     print(f"first step {time.perf_counter() - t0:.2f} s", flush=True)
 
-    gallery_topk.launches = 0
-    rotate_patches_kernel.launches = 0
+    _zero_launches()
     r = pipe.process(frames)
     torch.cuda.synchronize()
-    launches = {"gallery_topk": gallery_topk.launches,
-                "shear_rotate": rotate_patches_kernel.launches}
-    print(f"launches in one step (gallery {capacity} rows): {launches}", flush=True)
-    if min(launches.values()) < 1:
-        raise AssertionError(f"the serve step did not go through every kernel: {launches}")
+    launches = _launches()
+    print(f"launches in one step ({path}, gallery {capacity} rows): {launches}", flush=True)
+    # the exact warp takes the place of K2
+    want = {"gallery_topk": 1, "shear_rotate": 0 if precise else 1}
+    if launches != want:
+        raise AssertionError(f"the {path} step launched {launches}, not {want}")
 
     probs = r.probs.float().cpu().numpy()
     expected = BATCH * FACES
@@ -516,16 +610,20 @@ def serve(dev, frames, capacity: int, enroll, agree: bool = False):
             and (np.abs(scores[valid]) <= 1.0 + 1e-3).all()):
         raise AssertionError("serve step outputs are malformed")
 
+    x = pipe.upload(frames)
+    held = hold_path_kernels(path, pipe, x, r)
+    extra = {"kernels_held": held}
+    if precise:
+        extra["against_fast"] = precise_agrees(pipe, frames, r)
     if agree:
         small_input_agrees(dev)
 
     stats = pipe.benchmark(frames, iters=10, warmup=2)
-    x = pipe.upload(frames)
     stages = stage_breakdown(pipe, x)
     busy = device_busy(lambda: pipe.step(x))
     return launches, dict(stats, gallery_rows=capacity, gallery_count=pipe.gallery.count,
                           detected=found, detected_p090=found_090, detected_expected=expected,
-                          stages_ms=stages, **busy)
+                          stages_ms=stages, **busy, **extra), pipe
 
 
 def enroll_host(rng):
@@ -593,21 +691,17 @@ def stage_breakdown(pipe, x) -> dict:
 
     from facerec_torch.ops.arcface import l2_normalize
     from facerec_torch.ops.gallery import gallery_topk
-    from facerec_torch.ops.warp_fast import align_and_crop_fast_batched
 
     cfg = pipe.config
     with torch.no_grad():
         d = pipe.detector.detect(x)
-        crops = align_and_crop_fast_batched(x.float(), d.boxes, d.landmarks, cfg.embed_size,
-                                            out_dtype=torch.bfloat16)
+        crops = pipe.align(x, d.boxes, d.landmarks)
         flat = crops.reshape(-1, cfg.embed_size, cfg.embed_size, 3)
         emb = l2_normalize(pipe.embedder.embed(flat).float())
         g, c = pipe.gallery.embeddings, pipe.gallery.count_device
         out = {
             "detect": _time_ms(lambda: pipe.detector.detect(x), iters=5, warmup=1),
-            "align": _time_ms(lambda: align_and_crop_fast_batched(
-                x.float(), d.boxes, d.landmarks, cfg.embed_size, out_dtype=torch.bfloat16),
-                iters=5, warmup=1),
+            "align": _time_ms(lambda: pipe.align(x, d.boxes, d.landmarks), iters=5, warmup=1),
             "embed": _time_ms(lambda: pipe.embedder.embed(flat), iters=5, warmup=1),
             "match": _time_ms(lambda: gallery_topk(emb, g, c, k=cfg.top_k), iters=20),
         }
@@ -712,18 +806,73 @@ def time_train_step(state, batches, steps: int = 20, warmup: int = 5) -> dict:
     return {"ms_per_step": ms, **device_busy(one)}
 
 
-def train(dev) -> dict:
-    """Phase 6: the trainer at the arcface_synth configuration."""
+def loader_images_per_s(index, cfg) -> dict:
+    """One pass of each batcher alone over ``index``, native then PIL, in
+    images/s (wall clock; the native one only where its library loaded)."""
+    from facerec_torch.data import native_loader
+    from facerec_torch.data.datasets import ClassificationBatcher
+
+    kinds = [("pil", ClassificationBatcher)]
+    if native_loader.available():
+        kinds.insert(0, ("native", native_loader.NativeClassificationBatcher))
+    out = {}
+    for name, cls in kinds:
+        batcher = cls(index, cfg.batch_size, cfg.image_size, seed=cfg.seed)
+        t0 = time.perf_counter()
+        n = sum(int(b["mask"].sum()) for b in batcher.epoch(0))
+        out[name] = n / (time.perf_counter() - t0)
+    print("loader alone, images/s: " + json.dumps(out), flush=True)
+    return out
+
+
+def evaluate(dev, root: Path, checkpoints: Path, model_name: str, cfg, out_dir: Path) -> dict:
+    """The eval phase: ``evaluate_model`` on the train phase's checkpoint
+    and test split, then ``predict_image`` on 8 of its images."""
+    import torch
+
+    from facerec_torch.config import EvalConfig
+    from facerec_torch.data.datasets import ImageFolderIndex
+    from facerec_torch.eval.engine import evaluate_model, predict_image
+
+    ecfg = EvalConfig(model_type="arcface", model_name=model_name, image_size=cfg.image_size)
+    _zero_launches()
+    t0 = time.perf_counter()
+    res = evaluate_model(ecfg, root, checkpoints_root=checkpoints, outputs_root=out_dir,
+                         return_predictions=True, device=dev)
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t0
+    launches = _launches()
+    index = ImageFolderIndex.build(root / "test")
+    yhat = res["_predictions"]["yhat"]
+    picks = list(range(0, len(index), max(len(index) // 8, 1)))[:8]
+    pred = [predict_image(index.paths[i], ecfg, index.class_names, checkpoints_root=checkpoints,
+                          device=dev)["predicted_class"] for i in picks]
+    agree = [p == index.class_names[yhat[i]] for p, i in zip(pred, picks)]
+    stats = {"route": "evaluate_model + predict_image", "compute_dtype": ecfg.compute_dtype,
+             "batch_size": ecfg.batch_size, "test_images": res["num_test_images"],
+             "accuracy": res["accuracy"], "roc_auc": res["roc_auc"], "f1": res["f1"],
+             "ms_per_batch": res["avg_inference_time_ms"],
+             "images_per_s": res["throughput_imgs_per_sec"], "evaluate_model_s": eval_s,
+             "predict_image_agrees": f"{sum(agree)}/{len(agree)}",
+             "launches_of_port_kernels": launches}
+    if not (res["accuracy"] >= TRAIN_BAR and all(agree) and len(agree) == 8):
+        raise AssertionError(f"evaluation failed: accuracy {res['accuracy']} (bar {TRAIN_BAR}), "
+                             f"predict_image agreed on {sum(agree)}/{len(agree)}")
+    return stats
+
+
+def train(dev) -> tuple[dict, dict]:
+    """Phase 6: the trainer at the arcface_synth configuration, then the
+    eval phase on its checkpoint, in one temporary directory. Returns
+    (train stats, eval stats)."""
     import tempfile
 
     import PIL
     import torch
 
-    from facerec_torch.data.datasets import ClassificationBatcher, ImageFolderIndex
+    from facerec_torch.data.native_loader import NativeClassificationBatcher
     from facerec_torch.data.synthetic import write_synthetic_imagefolder
-    from facerec_torch.ops.gallery import gallery_topk
-    from facerec_torch.ops.warp_kernel import rotate_patches_kernel
-    from facerec_torch.train.engine import _run_epoch, train_model
+    from facerec_torch.train.engine import _make_batchers, _run_epoch, train_model
     from facerec_torch.train.steps import make_train_step
 
     cfg = arcface_synth_config()
@@ -733,8 +882,10 @@ def train(dev) -> dict:
                                            size=cfg.image_size, seed=0)
         print(f"train: wrote 16 x 40 faces of {cfg.image_size} px in "
               f"{time.perf_counter() - t0:.1f} s (Pillow {PIL.__version__})", flush=True)
-        gallery_topk.launches = 0
-        rotate_patches_kernel.launches = 0
+        batcher = _make_batchers(root, cfg)[0]["train"]  # the trainer's own choice
+        loader = "native" if isinstance(batcher, NativeClassificationBatcher) else "pil"
+        print(f"train: the trainer loads with the {loader} batcher", flush=True)
+        _zero_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         out = train_model(cfg, root, checkpoints_root=Path(td) / "checkpoints",
@@ -743,8 +894,7 @@ def train(dev) -> dict:
         train_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
         hist = out["history"]
-        launches = {"gallery_topk": gallery_topk.launches,
-                    "shear_rotate": rotate_patches_kernel.launches}
+        launches = _launches()
         print("train: epochs " + json.dumps([{k: r[k] for k in (
             "epoch", "train_loss", "train_acc", "val_loss", "val_acc", "lr", "time_elapsed")}
             for r in hist]), flush=True)
@@ -756,23 +906,25 @@ def train(dev) -> dict:
                                  f"{hist[0]['train_acc']} -> {hist[-1]['train_acc']}")
 
         state = out["state"]
-        index = ImageFolderIndex.build(root / "train")
-        batcher = ClassificationBatcher(index, cfg.batch_size, cfg.image_size, seed=cfg.seed)
-        t0 = time.perf_counter()
+        index = batcher.index
+        alone = loader_images_per_s(index, cfg)
         batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()}
                    for b in batcher.epoch(0)]
-        load_s = time.perf_counter() - t0
         timed = time_train_step(state, batches)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         _run_epoch(make_train_step("arcface", cfg.compute_dtype), state, batcher, dev, 0, True,
                    prefetch=cfg.prefetch_depth)
         epoch_s = time.perf_counter() - t0
+        del batches
+        eval_stats = evaluate(dev, root, Path(td) / "checkpoints", "arcface_synth_torch", cfg,
+                              Path(td) / "eval")
     agree = train_step_agrees(dev)
     flops = train_flops_per_image(state.model, cfg.image_size) * cfg.batch_size
     tflops = flops / (timed["ms_per_step"] * 1e-3) / 1e12
     stats = {
-        "route": "write_synthetic_imagefolder + train_model (ClassificationBatcher, PIL)",
+        "route": f"write_synthetic_imagefolder + train_model ({type(batcher).__name__})",
+        "loader": loader,
         "epochs": len(hist), "steps": state.step, "best_val_acc": out["best_val_acc"],
         "test_acc": out.get("test_acc"), "train_acc_first_last": [hist[0]["train_acc"],
                                                                   hist[-1]["train_acc"]],
@@ -782,7 +934,7 @@ def train(dev) -> dict:
         "gflop_per_step": flops / 1e9, "model_tflops": tflops,
         "bf16_peak_share": tflops / (BF16_TC_FLOPS / 1e12),
         "epoch_images_per_s_with_loading": len(index) / epoch_s,
-        "loading_alone_images_per_s": len(index) / load_s,
+        "loader_alone_images_per_s": alone,
         "device_busy_share": timed["device_busy_share"],
         "device_ms_per_step": timed["device_ms_per_step"],
         "host_ms_per_step_by_part": timed.get("host_ms_per_step_by_part"),
@@ -790,7 +942,88 @@ def train(dev) -> dict:
         "peak_memory_gb": peak / 2**30, "launches_of_port_kernels": launches,
         "card_vs_cpu": {k: agree[k]["rel"] for k in ("loss", "grad_norm")},
     }
-    return stats
+    return stats, eval_stats
+
+
+def packed_agrees(pipe, frames) -> dict:
+    """``process_demo`` + ``faces_from_packed`` against ``identify`` on the
+    same frames, with tests/test_subsystems.py's bars; the per-slot
+    embedding against the full result's."""
+    import numpy as np
+
+    ref = pipe.identify(frames)
+    packed, emb = pipe.process_demo(frames)
+    got = pipe.faces_from_packed(packed)
+    bad = []
+    if packed.shape != (len(frames), pipe.config.max_faces, 19):
+        bad.append(f"packed shape {packed.shape}")
+    if [len(g) for g in got] != [len(r) for r in ref]:
+        bad.append(f"faces {[len(g) for g in got]} against {[len(r) for r in ref]}")
+    for g, r in ((g, r) for gf, rf in zip(got, ref) for g, r in zip(gf, rf)):
+        if not (g["name"] == r["name"]
+                and np.allclose(g["box"], r["box"], rtol=0, atol=1e-4)
+                and math.isclose(g["prob"], r["prob"], rel_tol=1e-5)
+                and math.isclose(g["distance"], r["distance"], rel_tol=1e-4, abs_tol=1e-6)
+                and np.allclose(g["landmarks"], r["landmarks"], rtol=0, atol=1e-3)):
+            bad.append(f"slot {g['slot']}: {g} against {r}")
+    faces = sum(map(len, got))
+    if faces:
+        slot = got[0][0]["slot"]
+        e0 = emb[0, slot].float().cpu().numpy()
+        if not np.allclose(e0, ref[0][0]["embedding"], rtol=1e-5, atol=1e-7):
+            bad.append("the per-slot embedding differs")
+    out = {"frames": len(frames), "faces": faces,
+           "named": sum(f["name"] != "Unknown" for fr in got for f in fr), "mismatches": bad}
+    print("demo packed against identify: " + json.dumps(out), flush=True)
+    if bad or not faces:
+        raise AssertionError(f"the packed demo step disagrees with identify: {out}")
+    return out
+
+
+def demo(dev, bench_pipe, frames) -> tuple[dict, dict]:
+    """The demo phase. Returns (launches in ``measure_demo_fps``, stats)."""
+    import numpy as np
+    import torch
+
+    from facerec_torch.serve.app import (build_default_pipeline, measure_demo_fps,
+                                         synthetic_frame_source)
+
+    _zero_launches()
+    fps = measure_demo_fps(DEMO_FRAMES, device=dev)
+    torch.cuda.synchronize()
+    launches = _launches()
+    print(f"demo: {json.dumps(fps)}; launches {launches}", flush=True)
+    if min(launches.values()) < 1:
+        raise AssertionError(f"the demo did not go through every kernel: {launches}")
+
+    pipe = build_default_pipeline(FRAME_HW, device=dev)
+    src = synthetic_frame_source(FRAME_HW)
+    two = np.stack([src(), src()])
+    # a half-filled gallery that holds the first frame's face, lightly noised
+    probe = pipe.process(two[:1])
+    face = probe.embeddings[0][probe.valid[0]].float().cpu().numpy()
+    rng = np.random.default_rng(9)
+    n = pipe.config.gallery_capacity // 2
+    gal = rng.normal(size=(n, 512)).astype(np.float32)
+    gal[:len(face)] = face + 0.02 * rng.normal(size=face.shape)
+    pipe.gallery.add_many([f"id_{i}" for i in range(n)], gal)
+    agree = packed_agrees(pipe, two)
+    x = pipe.upload(two[:1])
+    held = hold_path_kernels("demo", pipe, x, pipe.step(x))
+
+    bench = bench_pipe.benchmark(frames, iters=6, warmup=1)
+    transfer = bench_pipe.benchmark_transfer(frames, iters=6, warmup=1)
+    stats = {"route": "build_default_pipeline + FaceDemo (packed step, batch 1)",
+             "frame_hw": list(FRAME_HW), "max_faces": pipe.config.max_faces,
+             "embedder": "random ArcFace (no port checkpoint of arcface_synth)",
+             **fps, "pipelined_gain": fps["demo_fps"] / fps["demo_fps_serial"],
+             "packed_against_identify": agree, "kernels_held": held,
+             "bench_faces_per_s": bench["faces_per_sec"],
+             "bench_sec_per_batch": bench["sec_per_batch"],
+             "transfer_faces_per_s": transfer["faces_per_sec"],
+             "transfer_sec_per_batch": transfer["sec_per_batch"],
+             "transfer_host_sec_per_batch": transfer["host_sec_per_batch"]}
+    return launches, stats
 
 
 def k2_tilings(k2_in, blocks_per_sm=(2, 1), segments=(1, 2, 3, 4)) -> list[dict]:
@@ -817,7 +1050,10 @@ def k2_tilings(k2_in, blocks_per_sm=(2, 1), segments=(1, 2, 3, 4)) -> list[dict]
     return out
 
 
-def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches) -> list[dict]:
+def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held) -> list[dict]:
+    """The kernels line: each kernel's launches on every path, its error at
+    the serve shape and on each path's own inputs (``held``), and its
+    times."""
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
     from facerec_torch.ops.warp_fast import rotate_patches
 
@@ -840,6 +1076,7 @@ def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches) -> list[dict]:
          "launches": launches["serve"]["gallery_topk"],
          "launches_by_path": {k: v["gallery_topk"] for k, v in launches.items()},
          "max_abs_err": k1_err,
+         "max_abs_err_by_path": {k: v["gallery_topk"] for k, v in held.items()},
          **{key: serve_row[key] for key in ("ms", "plain_ms", "bound_ms", "bound_by",
                                             "library_ms", "library_f32_ms")},
          "sizes": k1_sizes},
@@ -848,6 +1085,8 @@ def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches) -> list[dict]:
          "launches": launches["serve"]["shear_rotate"],
          "launches_by_path": {k: v["shear_rotate"] for k, v in launches.items()},
          "max_abs_err": k2_err,
+         "max_abs_err_by_path": {k: v["shear_rotate"] for k, v in held.items()
+                                 if "shear_rotate" in v},
          "ms": _time_ms(k2, iters=20), "host_ms": _host_ms(k2),
          "device_ms": _kernel_device_ms(k2, ("shear_rotate",)),
          "plain_ms": _time_ms(lambda: rotate_patches(patches, angles, centers, e), iters=5),
@@ -885,6 +1124,12 @@ def main() -> int:
         for line in (build.BUILD_DIR / f"{name}.log").read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
+    try:
+        print(f"build: the JPEG loader with g++ in {build.build_loader(force=True):.1f} s",
+              flush=True)
+    except RuntimeError as e:  # the trainer then loads with PIL, as the JAX one would here
+        print(f"build: the JPEG loader did not build; the trainer takes the PIL batcher. {e}",
+              flush=True)
 
     q, galleries, k1_err = check_k1(dev)
     k1_sizes = time_k1(q, galleries)
@@ -900,18 +1145,36 @@ def main() -> int:
     rng = np.random.default_rng(0)
     frames = face_frames(BATCH, FRAME_HW, FACES, rng)
     print(f"rendered {BATCH} frames in {time.perf_counter() - t0:.1f} s", flush=True)
-    launches = {}
+    launches, pipes, held = {}, {}, {}
     for path, capacity, enroll in (("serve", SERVE_ROWS, enroll_host(rng)),
-                                   ("serve_1048576", BIG_ROWS, enroll_device(5))):
-        launches[path], stats = serve(dev, frames, capacity, enroll, agree=path == "serve")
+                                   ("serve_1048576", BIG_ROWS, enroll_device(5)),
+                                   ("serve_precise", SERVE_ROWS, enroll_host(rng))):
+        launches[path], stats, pipes[path] = serve(dev, frames, capacity, enroll, path,
+                                                   agree=path == "serve",
+                                                   precise=path == "serve_precise")
         print(f"{path}: " + json.dumps({key: stats[key] for key in (
             "gallery_rows", "gallery_count", "faces_per_sec", "sec_per_batch",
             "host_sec_per_batch", "detected", "detected_p090", "detected_expected",
-            "stages_ms", "device_busy_share")} | {"card": card}), flush=True)
+            "stages_ms", "device_busy_share", "kernels_held")}
+            | {k: stats[k] for k in ("against_fast",) if k in stats} | {"card": card}),
+            flush=True)
+        held[path] = stats["kernels_held"]
+        if path != "serve":
+            del pipes[path]
         torch.cuda.empty_cache()
-    print("train: " + json.dumps(train(dev) | {"card": card}), flush=True)
+    train_stats, eval_stats = train(dev)
+    launches["train"] = train_stats["launches_of_port_kernels"]
+    launches["eval"] = eval_stats["launches_of_port_kernels"]
+    print("train: " + json.dumps(train_stats | {"card": card}), flush=True)
+    print("eval: " + json.dumps(eval_stats | {"card": card}), flush=True)
+    if any(launches["eval"].values()):
+        raise AssertionError(f"the eval path launched a serve kernel: {launches['eval']}")
     torch.cuda.empty_cache()
-    rows = kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches)
+    launches["demo"], demo_stats = demo(dev, pipes.pop("serve"), frames)
+    held["demo"] = demo_stats["kernels_held"]
+    print("demo: " + json.dumps(demo_stats | {"card": card}), flush=True)
+    torch.cuda.empty_cache()
+    rows = kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held)
     print(json.dumps({"kernels": rows, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -3,8 +3,11 @@
 Each ``csrc/*.cu`` file has a plain C interface and becomes its own shared
 library, compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the repository
 root and loaded with ``ctypes``. All sources compile in parallel (one
-``nvcc`` process each). A library newer than its source is reused. Nothing
-here runs at import time: the first wrapper that launches a kernel builds it.
+``nvcc`` process each). The host JPEG loader, ``csrc/loader.cpp``, is built
+the same way by ``g++`` against libjpeg, and needs no CUDA toolkit. A
+library newer than its source is reused. Nothing here runs at import time:
+the first wrapper that launches a kernel (or the first native batcher)
+builds it.
 """
 
 from __future__ import annotations
@@ -19,6 +22,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
 SOURCES = ("gallery_topk", "shear_rotate")
+LOADER = "loader"
+GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -36,9 +41,13 @@ def _lib_path(name: str) -> Path:
     return BUILD_DIR / f"lib{name}.so"
 
 
+def _source(name: str) -> Path:
+    return CSRC / (f"{name}.cpp" if name == LOADER else f"{name}.cu")
+
+
 def _stale(name: str) -> bool:
     lib = _lib_path(name)
-    return not lib.exists() or lib.stat().st_mtime < (CSRC / f"{name}.cu").stat().st_mtime
+    return not lib.exists() or lib.stat().st_mtime < _source(name).stat().st_mtime
 
 
 def build(names: tuple[str, ...] = SOURCES, force: bool = False) -> float:
@@ -69,10 +78,34 @@ def build(names: tuple[str, ...] = SOURCES, force: bool = False) -> float:
     return time.perf_counter() - t0
 
 
+def build_loader(force: bool = False) -> float:
+    """Compile the host JPEG loader with ``g++`` (``-ljpeg -lpthread``) into
+    ``build/libloader.so``; returns the wall seconds. Raises RuntimeError
+    with the compiler's output when it fails (no g++ or no libjpeg)."""
+    if not (force or _stale(LOADER)):
+        return 0.0
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = BUILD_DIR / f"lib{LOADER}.{os.getpid()}.tmp.so"
+    cmd = ["g++", *GXX_FLAGS, str(_source(LOADER)), "-ljpeg", "-lpthread", "-o", str(tmp)]
+    t0 = time.perf_counter()
+    try:
+        out = subprocess.run(cmd, capture_output=True, text=True)
+    except FileNotFoundError as e:
+        raise RuntimeError(f"g++ failed for {LOADER}.cpp: {e}") from e
+    if out.returncode != 0:
+        raise RuntimeError(f"g++ failed for {LOADER}.cpp (exit {out.returncode}):\n{out.stderr}")
+    os.replace(tmp, _lib_path(LOADER))
+    return time.perf_counter() - t0
+
+
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for kernel ``name``, built first if needed."""
+    """The loaded library for kernel ``name`` (or ``LOADER``), built first
+    if needed."""
     if name not in _loaded:
-        build((name,))
+        if name == LOADER:
+            build_loader()
+        else:
+            build((name,))
         _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
     return _loaded[name]
 

@@ -1,6 +1,6 @@
-"""Serve and train configuration and path constants (a copy of the parts of
-``facerec_tpu/config.py`` the serve step and the trainer need, so the port
-never imports the JAX package)."""
+"""Serve, train and eval configuration and path constants (a copy of the
+parts of ``facerec_tpu/config.py`` the serve step, the demo, the trainer and
+the evaluator need, so the port never imports the JAX package)."""
 
 from __future__ import annotations
 
@@ -13,6 +13,8 @@ from pathlib import Path
 from typing import Any
 
 PROJECT_ROOT = Path(os.environ.get("FACEREC_ROOT", Path(__file__).resolve().parent.parent))
+DATA_DIR = PROJECT_ROOT / "data"
+PROC_DATA_DIR = DATA_DIR / "processed"
 OUTPUTS_DIR = PROJECT_ROOT / "outputs"
 CHECKPOINTS_DIR = OUTPUTS_DIR / "checkpoints"
 FACE_REFERENCES_DIR = PROJECT_ROOT / "face_references"
@@ -175,3 +177,14 @@ class TrainConfig(_DictMixin):
     # Host input pipeline
     prefetch_depth: int = 2
     shuffle_buffer: int = 2048
+
+
+@dataclass(frozen=True)
+class EvalConfig(_DictMixin):
+    model_type: str = "baseline"
+    model_name: str | None = None
+    batch_size: int = 64
+    image_size: int = IMG_SIZE
+    seed: int = 42
+    siamese_distance_threshold: float = 0.5  # reference training.py:588-590
+    compute_dtype: str = "bfloat16"

@@ -2,11 +2,16 @@
 (counterpart of ``facerec_tpu/serve/pipeline.py``).
 
 One call of ``step`` runs the MTCNN cascade, box clean-up, the fused
-eye-levelling align + crop (2-shear rotation kernel), the ArcFace embedder
-and the gallery top-k kernel over a fixed-size frame batch; each frame
-yields up to ``max_faces`` masked slots. PyTorch runs eagerly, so the step is
-a sequence of launches rather than one compiled program; the NMS fixed
-points read the host once per block of rounds.
+eye-levelling align + crop (2-shear rotation kernel; or, with
+``precise_align``, the exact gather warp of ``ops/image.py``), the ArcFace
+embedder and the gallery top-k kernel over a fixed-size frame batch; each
+frame yields up to ``max_faces`` masked slots. PyTorch runs eagerly, so the
+step is a sequence of launches rather than one compiled program; the NMS
+fixed points read the host once per block of rounds, so ``dispatch_demo``
+returns only once detection is done.
+
+The demo's path, ``packed_step``, packs every field the host needs into one
+[B, F, 19] f32 tensor, so a frame costs one device-to-host copy.
 """
 
 from __future__ import annotations
@@ -23,7 +28,7 @@ from facerec_torch.config import ServeConfig
 from facerec_torch.detect.mtcnn import MTCNN
 from facerec_torch.ops.arcface import l2_normalize
 from facerec_torch.ops.gallery import cosine_to_euclidean, gallery_topk
-from facerec_torch.ops.image import bbox_with_margin
+from facerec_torch.ops.image import align_and_crop_batched, bbox_with_margin
 from facerec_torch.ops.warp_fast import align_and_crop_fast_batched
 from facerec_torch.serve.gallery import GalleryStore
 
@@ -48,12 +53,15 @@ class FacePipeline:
     ``detector``: an ``MTCNN`` built for ``frame_hw``; ``embedder``: a module
     whose ``embed(crops [N, S, S, 3]) -> [N, D]`` takes raw 0..255 crops
     (``models.arcface.build_embedder``). Both must live on ``device``
-    (default: the CUDA card; with no card the constructor raises)."""
+    (default: the CUDA card; with no card the constructor raises).
+    ``precise_align``: align with the exact per-pixel gather warp on f32
+    frames (f32 crops) instead of the fast path and its rotation kernel."""
 
     def __init__(self, config: ServeConfig, frame_hw: tuple[int, int], detector: MTCNN,
                  embedder: nn.Module, embed_dim: int = 512, face_margin: float = 0.0,
-                 device: str | torch.device | None = None):
+                 device: str | torch.device | None = None, precise_align: bool = False):
         self.device = resolve_device(device)
+        self.precise_align = precise_align
         self.config = config
         self.frame_hw = tuple(frame_hw)
         self.detector = detector
@@ -86,8 +94,7 @@ class FacePipeline:
         boxes = torch.where(valid[..., None], torch.stack([x1, y1, x2, y2], dim=-1),
                             self._default_box)
         landmarks = torch.where(valid[..., None, None], d.landmarks, self._default_lmk)
-        crops = align_and_crop_fast_batched(frames.float(), boxes, landmarks, cfg.embed_size,
-                                            out_dtype=torch.bfloat16)
+        crops = self.align(frames, boxes, landmarks)
         crops = crops.reshape(b * f, cfg.embed_size, cfg.embed_size, 3)
         emb = l2_normalize(self.embedder.embed(crops).float())
         count = self.gallery.count_device
@@ -100,6 +107,69 @@ class FacePipeline:
         is_match = valid & (dist[..., 0] <= cfg.recognition_threshold) & (count > 0)
         return PipelineResult(boxes, d.probs, d.landmarks, valid, emb, scores, idx, dist,
                               is_match)
+
+    def align(self, frames: torch.Tensor, boxes: torch.Tensor, landmarks: torch.Tensor
+              ) -> torch.Tensor:
+        """[B, F, S, S, 3] eye-levelled crops: bf16 from the fast path, f32
+        from the exact warp under ``precise_align``."""
+        if self.precise_align:
+            return align_and_crop_batched(frames.float(), boxes, landmarks,
+                                          self.config.embed_size)
+        return align_and_crop_fast_batched(frames.float(), boxes, landmarks,
+                                           self.config.embed_size, out_dtype=torch.bfloat16)
+
+    @torch.no_grad()
+    def packed_step(self, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The step, with every host-needed field packed into one [B, F, 19]
+        f32 tensor (columns: valid, prob, box x4, landmarks x10, is_match,
+        top-1 gallery row, top-1 distance); the embeddings [B, F, D] stay on
+        the device."""
+        r = self.step(frames)
+        b, f = r.probs.shape
+        flat = torch.cat([
+            r.valid[..., None].float(),
+            r.probs[..., None].float(),
+            r.boxes.float(),
+            r.landmarks.reshape(b, f, 10).float(),
+            r.is_match[..., None].float(),
+            r.match_indices[..., :1].float(),
+            r.match_distances[..., :1].float(),
+        ], dim=-1)
+        return flat, r.embeddings
+
+    def dispatch_demo(self, frames: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
+        """Upload and run the packed step; returns the device tensors
+        (packed, embeddings) without waiting for the card to finish them."""
+        return self.packed_step(self.upload(frames))
+
+    def process_demo(self, frames: np.ndarray) -> tuple[np.ndarray, torch.Tensor]:
+        """(packed [B, F, 19] on the host, one copy; device embeddings)."""
+        flat, emb = self.dispatch_demo(frames)
+        return flat.cpu().numpy(), emb
+
+    def faces_from_packed(self, flat: np.ndarray) -> list[list[dict]]:
+        """Decode a packed [B, F, 19] array into ``identify``-shaped face
+        dicts, without ``embedding``; ``slot`` is the face slot, for fetching
+        its device-resident embedding on demand."""
+        out = []
+        for bi in range(flat.shape[0]):
+            faces = []
+            for fi in range(flat.shape[1]):
+                row = flat[bi, fi]
+                if row[0] < 0.5:
+                    continue
+                matched = row[16] >= 0.5
+                gi = int(row[17])
+                faces.append({
+                    "slot": fi,
+                    "box": row[2:6].tolist(),
+                    "prob": float(row[1]),
+                    "landmarks": row[6:16].reshape(5, 2).tolist(),
+                    "name": self.gallery.name_of(gi) if matched else "Unknown",
+                    "distance": float(row[18]),
+                })
+            out.append(faces)
+        return out
 
     def upload(self, frames: np.ndarray) -> torch.Tensor:
         """Host frames to the device: uint8 travels as uint8 (a quarter of
@@ -140,24 +210,49 @@ class FacePipeline:
                   ) -> dict[str, float]:
         """Steady-state throughput of the step on device-resident frames,
         timed with CUDA events after ``warmup`` steps. Runs only on a card."""
+        self._check_card()
+        x = self.upload(frames)
+        return self._timed(lambda: self.step(x), x.shape[0], iters, warmup)
+
+    def benchmark_transfer(self, frames: np.ndarray, iters: int = 12, warmup: int = 2
+                           ) -> dict[str, float]:
+        """Throughput with the upload included: every iteration uploads a
+        fresh host uint8 batch (the camera's dtype; a 3-byte salt in one
+        pixel makes each upload distinct) and runs the step. Runs only on a
+        card."""
+        self._check_card()
+        base = np.ascontiguousarray(np.clip(np.asarray(frames), 0, 255).astype(np.uint8))
+        cursor = [0]
+
+        def one():
+            i = cursor[0]
+            cursor[0] += 1
+            base[0, 0, 0, :] = (i & 0xFF, (i >> 8) & 0xFF, 1)
+            self.step(self.upload(base))  # pageable: base is read before upload returns
+
+        return self._timed(one, base.shape[0], iters, warmup)
+
+    def _check_card(self) -> None:
         if self.device.type != "cuda":
             raise RuntimeError("benchmark measures the CUDA card; this pipeline is on "
                                f"{self.device}")
-        x = self.upload(frames)
+
+    def _timed(self, fn, b: int, iters: int, warmup: int) -> dict[str, float]:
+        """``fn`` timed with CUDA events after ``warmup`` calls; the wall
+        clock beside it."""
         for _ in range(warmup):
-            self.step(x)
+            fn()
         torch.cuda.synchronize(self.device)
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         t0 = time.perf_counter()
         start.record()
         for _ in range(iters):
-            self.step(x)
+            fn()
         end.record()
         torch.cuda.synchronize(self.device)
         wall = (time.perf_counter() - t0) / iters
         dt = start.elapsed_time(end) / 1e3 / iters
-        b = x.shape[0]
         return {
             "sec_per_batch": dt,
             "host_sec_per_batch": wall,

@@ -16,9 +16,12 @@ optimizer's hyperparameters. The behaviour follows the JAX engine:
     scheduler and stopper), the final save, the test evaluation, the
     confusion matrix and ``model_info.json``.
 
-Images load through ``ClassificationBatcher`` (PIL). The JAX engine's
-native JPEG loader, its LR finder, its mesh and the model types other than
-``baseline`` and ``arcface`` are not ported yet (ROADMAP).
+Images load as the JAX engine loads them: through the native JPEG loader
+(``data/native_loader.py``) when it builds and every path of a split is a
+JPEG, otherwise through ``ClassificationBatcher`` (PIL), so that both
+trainers see the same batches. The JAX engine's LR finder, its mesh and the
+model types other than ``baseline`` and ``arcface`` are not ported yet
+(ROADMAP).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import torch
 
 from facerec_torch import resolve_device
 from facerec_torch.config import CHECKPOINTS_DIR, TrainConfig, logger
+from facerec_torch.data import native_loader
 from facerec_torch.data.datasets import ClassificationBatcher, ImageFolderIndex
 from facerec_torch.data.pipeline import prefetch_to_device
 from facerec_torch.eval.metrics import confusion_matrix, count_parameters
@@ -63,9 +67,20 @@ def _make_batchers(data_dir: Path, config: TrainConfig):
             continue
         index = ImageFolderIndex.build(d)
         num_classes = max(num_classes, index.num_classes)
-        out[split] = ClassificationBatcher(index, config.batch_size, config.image_size,
-                                           shuffle=(split == "train"), seed=config.seed)
+        out[split] = _classification_batcher(index, config.batch_size, config.image_size,
+                                             shuffle=(split == "train"), seed=config.seed)
     return out, num_classes
+
+
+def _classification_batcher(index: ImageFolderIndex, batch_size: int, image_size: int,
+                            shuffle: bool, seed: int):
+    """The native JPEG batcher when the loader builds and every path is a
+    JPEG, else the PIL batcher: the JAX engine's choice, and so its batches."""
+    if native_loader.available() and all(p.suffix.lower() in (".jpg", ".jpeg")
+                                         for p in index.paths):
+        return native_loader.NativeClassificationBatcher(index, batch_size, image_size,
+                                                         shuffle=shuffle, seed=seed)
+    return ClassificationBatcher(index, batch_size, image_size, shuffle=shuffle, seed=seed)
 
 
 def _run_epoch(step_fn: Callable, state: TrainState, batcher, device: torch.device, epoch: int,

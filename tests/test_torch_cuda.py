@@ -270,3 +270,103 @@ def test_train_model_on_the_card(dev, tmp_path):
     emb = build_embedder(checkpoint=model_dir / "final", device=dev)
     got = emb.embed(torch.rand(3, 64, 64, 3, device=dev) * 255)
     assert got.shape == (3, 512) and torch.isfinite(got).all()
+
+
+def _tiny_pipeline(dev, precise_align=False):
+    """96 x 96 frames, the committed detector weights, a narrow ArcFace at
+    32 px crops, f32, TF32 off by the caller."""
+    from facerec_torch.config import ServeConfig
+    from facerec_torch.detect.mtcnn import MTCNN
+    from facerec_torch.detect.weights import load_detector_params
+    from facerec_torch.serve.pipeline import FacePipeline
+
+    cfg = ServeConfig(max_faces=4, gallery_capacity=128, top_k=3, embed_size=32,
+                      detection_threshold=0.0, recognition_threshold=10.0)
+    det = MTCNN((96, 96), min_face_size=24, max_faces=4, k_pnet=16, k_rnet=8, device=dev)
+    det.load_jax_params(load_detector_params())
+    emb = build_embedder(width=16, dtype=torch.float32, seed=1, device=dev)
+    pipe = FacePipeline(cfg, (96, 96), det, emb, device=dev, precise_align=precise_align)
+    pipe.gallery.add_many(["a", "b", "c"], torch.randn(3, 512, generator=torch.Generator()
+                                                       .manual_seed(3)).numpy())
+    return pipe
+
+
+def _demo_frames():
+    import numpy as np
+
+    from facerec_torch.serve.app import synthetic_frame_source
+
+    src = synthetic_frame_source((96, 96))
+    return np.stack([src(), src()])
+
+
+def test_precise_step_on_the_card_matches_the_cpu(dev, no_tf32):
+    """FacePipeline(precise_align=True): the exact warp launches K1 and not
+    K2, and agrees with the CPU step (same valid slots, cosine > 0.999,
+    same top-1)."""
+    frames = _demo_frames()
+    card, cpu = _tiny_pipeline(dev, True), _tiny_pipeline(torch.device("cpu"), True)
+    k1, k2 = gallery_topk.launches, rotate_patches_kernel.launches
+    a = card.process(frames)
+    torch.cuda.synchronize()
+    assert (gallery_topk.launches - k1, rotate_patches_kernel.launches - k2) == (1, 0)
+    b = cpu.process(frames)
+    va = a.valid.cpu()
+    assert torch.equal(va, b.valid) and va.any()
+    assert ((a.embeddings.cpu() * b.embeddings).sum(-1)[va] > 0.999).all()
+    assert torch.equal(a.match_indices.cpu()[..., 0][va], b.match_indices[..., 0][va])
+
+
+def test_packed_demo_on_the_card_matches_identify(dev, no_tf32):
+    import numpy as np
+
+    pipe = _tiny_pipeline(dev)
+    frames = _demo_frames()
+    ref = pipe.identify(frames)
+    packed, emb = pipe.process_demo(frames)
+    got = pipe.faces_from_packed(packed)
+    assert emb.is_cuda and packed.shape == (2, 4, 19)
+    assert [len(g) for g in got] == [len(r) for r in ref] and sum(map(len, got)) >= 2
+    for g, r in ((g, r) for gf, rf in zip(got, ref) for g, r in zip(gf, rf)):
+        assert g["name"] == r["name"]
+        assert g["box"] == pytest.approx(r["box"], abs=1e-4)
+        assert g["prob"] == pytest.approx(r["prob"], rel=1e-5)
+        assert g["distance"] == pytest.approx(r["distance"], rel=1e-4)
+        assert np.asarray(g["landmarks"]) == pytest.approx(np.asarray(r["landmarks"]), abs=1e-3)
+    slot = got[0][0]["slot"]
+    np.testing.assert_allclose(emb[0, slot].cpu().numpy(), ref[0][0]["embedding"], rtol=1e-5)
+    stats = pipe.benchmark_transfer(frames, iters=2, warmup=1)
+    assert stats["faces_per_sec"] > 0 and stats["host_sec_per_batch"] > 0
+
+
+def test_evaluate_model_on_the_card_matches_the_cpu(dev, tmp_path, no_tf32):
+    """evaluate_model and predict_image of one checkpoint, f32, on the card
+    and on the CPU: the same argmax, probabilities within 1e-4."""
+    import numpy as np
+
+    from facerec_torch.config import EvalConfig
+    from facerec_torch.eval.engine import evaluate_model, predict_image
+    from facerec_torch.models import get_model
+    from facerec_torch.models.arcface import init_like_flax
+    from facerec_torch.train.checkpoints import save_checkpoint
+
+    root = write_synthetic_imagefolder(tmp_path / "ds", num_classes=4, per_class=14, size=32,
+                                       seed=4)
+    for model_type in ("baseline", "arcface"):
+        net = get_model(model_type, num_classes=4)
+        init_like_flax(net, torch.Generator().manual_seed(2))
+        save_checkpoint(tmp_path / "ck" / model_type, "best", net.state_dict())
+        cfg = EvalConfig(model_type=model_type, batch_size=8, image_size=32,
+                         compute_dtype="float32")
+        out = [evaluate_model(cfg, root, checkpoints_root=tmp_path / "ck",
+                              outputs_root=tmp_path / d.type, return_predictions=True, device=d)
+               for d in (dev, torch.device("cpu"))]
+        card, cpu = (o["_predictions"] for o in out)
+        np.testing.assert_array_equal(card["yhat"], cpu["yhat"])
+        np.testing.assert_allclose(card["probs"], cpu["probs"], atol=1e-4)
+        assert out[0]["avg_inference_time_ms"] > 0
+        img = sorted((root / "test").glob("*/*.jpg"))[0]
+        names = [f"person_{i:03d}" for i in range(4)]
+        p = [predict_image(img, cfg, names, checkpoints_root=tmp_path / "ck", device=d)
+             for d in (dev, torch.device("cpu"))]
+        assert p[0]["predicted_class"] == p[1]["predicted_class"] == names[card["yhat"][0]]

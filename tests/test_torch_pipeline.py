@@ -121,15 +121,26 @@ def test_port_imports_no_jax():
     assert "facerec_torch.ops.gallery" in mods and "facerec_torch.serve.pipeline" in mods
 
 
-@pytest.mark.parametrize("entry", ["pipeline", "mtcnn", "embedder", "gallery"])
-def test_entry_points_refuse_cpu_fallback(entry):
+@pytest.mark.parametrize("entry", ["pipeline", "mtcnn", "embedder", "gallery", "evaluate_model",
+                                   "predict_image", "build_default_pipeline"])
+def test_entry_points_refuse_cpu_fallback(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the refusal is for machines without one")
+    from facerec_torch.config import EvalConfig
+    from facerec_torch.eval.engine import evaluate_model, predict_image
+    from facerec_torch.serve.app import build_default_pipeline
+
     build = {
         "pipeline": lambda: FacePipeline(ServeConfig(**CFG), HW, None, None),
         "mtcnn": lambda: MTCNN(HW),
         "embedder": lambda: build_embedder(),
         "gallery": lambda: GalleryStore(),
+        "evaluate_model": lambda: evaluate_model(EvalConfig(), tmp_path,
+                                                 checkpoints_root=tmp_path,
+                                                 outputs_root=tmp_path),
+        "predict_image": lambda: predict_image(tmp_path / "a.jpg", EvalConfig(), ["a"],
+                                               checkpoints_root=tmp_path),
+        "build_default_pipeline": lambda: build_default_pipeline(HW),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
