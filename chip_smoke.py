@@ -68,7 +68,18 @@ Phases, each of which raises (and so exits nonzero) on failure:
               accuracy >= the train bar, ROC-AUC, ms/batch and images/s;
               ``predict_image`` on 8 test images gives ``evaluate_model``'s
               argmax for each. No TPU kernel either;
-     demo     ``measure_demo_fps(40)`` through ``build_default_pipeline`` on
+     zoo      on the same tree, beside the ArcFace checkpoint: ``train_model``
+              on cnn, attention, hybrid and siamese (full width, the
+              arcface_synth optimizer and schedule, 3 epochs each; every
+              loss finite, the last epoch's below the first's), each step
+              timed on device-resident batches with its busy share and peak
+              memory; one f32 step of each on the card against the CPU
+              (1e-3); ``evaluate_model`` on each checkpoint (fixed pairs
+              for siamese); the default ensemble from
+              ``create_pretrained_ensemble`` (cnn + attention + the ArcFace)
+              evaluated, its logits the mean of its members' within 1e-5.
+              K1 and K2 must launch 0 times; one ``zoo:`` line per type;
+     demo    ``measure_demo_fps(40)`` through ``build_default_pipeline`` on
               480 x 640 synthetic camera frames (the committed detector
               weights, batch-1 packed steps): pipelined and serial fps, frame
               ms; ``process_demo`` + ``faces_from_packed`` against
@@ -116,6 +127,9 @@ TRAIN_BAR = 0.5  # best val accuracy; chance is 1/16
 TRAIN_STEP_RTOL = 1e-3  # card against CPU, f32
 PRECISE_COS = 0.98  # fast against exact align within +-15 degrees (tests/test_ops.py)
 DEMO_FRAMES = 40
+ZOO_TYPES = ("cnn", "attention", "hybrid", "siamese")
+ZOO_EPOCHS = 3
+ENSEMBLE_ATOL = 1e-5  # the average ensemble's logits against the mean of its members'
 
 
 def _card() -> str:
@@ -749,33 +763,68 @@ def train_flops_per_image(model, image: int) -> float:
     return 3.0 * fwd
 
 
-def train_step_agrees(dev) -> dict:
-    """One arcface train step (f32, TF32 off, dropout 0) on the card and on
-    the CPU from the same seeded weights and batch: loss and grad_norm
-    within ``TRAIN_STEP_RTOL`` relative."""
+def _no_dropout_model(model_type: str, num_classes: int = 16):
+    """A full-width model of ``model_type`` with every dropout off (the
+    rates the JAX models hard-code included)."""
+    from facerec_torch.models import get_model
+    from facerec_torch.models.arcface import ArcFaceNet
+
+    if model_type == "arcface":
+        arc = arcface_synth_config().arcface
+        return ArcFaceNet(num_classes=num_classes, dropout_rate=0.0, margin=arc.margin,
+                          scale=arc.scale, easy_margin=arc.easy_margin,
+                          progressive_margin=arc.progressive_margin,
+                          warmup_epochs=arc.warmup_epochs)
+    net = get_model(model_type, num_classes=num_classes)
+    if model_type == "siamese":
+        net.dropout_rates = (0.0, 0.0)
+    else:
+        net.dropout_rate = 0.0
+    if model_type == "hybrid":
+        net.transformer.set_dropout(0.0)
+    return net
+
+
+def _step_batch(model_type: str) -> dict:
+    """16 seeded faces of 64 px (8 people, 2 each) as a classification
+    batch, or as 16 pairs (8 of the same person, 8 of two) for siamese."""
     import numpy as np
-    import torch
 
     from facerec_torch.data.datasets import _imagenet_normalize
     from facerec_torch.data.synthetic import make_synthetic_arrays
-    from facerec_torch.models.arcface import ArcFaceNet
+
+    classes = 8 if model_type == "siamese" else 16
+    imgs, labels = make_synthetic_arrays(num_classes=classes, per_class=16 // classes, size=64,
+                                         seed=3)
+    x = _imagenet_normalize(imgs)
+    mask = np.ones(len(labels), np.float32)
+    if model_type != "siamese":
+        return {"image": x, "label": labels, "mask": mask}
+    a = np.argsort(labels, kind="stable")  # person-major
+    b = np.concatenate([a[np.arange(8) ^ 1],  # the other face of the same person
+                        a[(np.arange(8, 16) + 2) % 16]])  # a face of another person
+    return {"image_a": x[a], "image_b": x[b], "mask": mask,
+            "pair_label": (labels[a] == labels[b]).astype(np.int32)}
+
+
+def train_step_agrees(dev, model_type: str = "arcface") -> dict:
+    """One train step of ``model_type`` (f32, TF32 off, dropout 0) on the
+    card and on the CPU from the same seeded weights and batch: loss and
+    grad_norm within ``TRAIN_STEP_RTOL`` relative."""
+    import torch
+
     from facerec_torch.train.state import create_train_state
     from facerec_torch.train.steps import make_train_step
 
     cfg = arcface_synth_config()
-    arc = cfg.arcface
-    imgs, labels = make_synthetic_arrays(num_classes=16, per_class=1, size=64, seed=3)
-    batch = {"image": _imagenet_normalize(imgs), "label": labels,
-             "mask": np.ones(len(labels), np.float32)}
+    batch = _step_batch(model_type)
     out = []
     for d in (dev, torch.device("cpu")):
-        net = ArcFaceNet(num_classes=16, dropout_rate=0.0, margin=arc.margin, scale=arc.scale,
-                         easy_margin=arc.easy_margin, progressive_margin=arc.progressive_margin,
-                         warmup_epochs=arc.warmup_epochs)
-        state = create_train_state(net, cfg, "arcface", d)
+        net = _no_dropout_model(model_type)
+        state = create_train_state(net, cfg, model_type, d)
         state.epoch = 2.0
-        m = make_train_step("arcface", "float32")(state, {k: torch.from_numpy(v).to(d)
-                                                            for k, v in batch.items()})
+        m = make_train_step(model_type, "float32")(state, {k: torch.from_numpy(v).to(d)
+                                                             for k, v in batch.items()})
         out.append({"loss": float(m["loss_sum"] / m["count"]), "grad_norm": float(m["grad_norm"]),
                     "params": [p.detach().cpu() for p in net.parameters()]})
     card, cpu = out
@@ -783,18 +832,19 @@ def train_step_agrees(dev) -> dict:
            for k in ("loss", "grad_norm")}
     res["max_param_diff"] = max((a - b).abs().max().item()
                                 for a, b in zip(card["params"], cpu["params"]))
-    print("train step card vs cpu: " + json.dumps(res), flush=True)
+    print(f"train step card vs cpu ({model_type}): " + json.dumps(res), flush=True)
     if not all(res[k]["rel"] <= TRAIN_STEP_RTOL for k in ("loss", "grad_norm")):
         raise AssertionError(f"the train step on the card disagrees with the CPU step: {res}")
     return res
 
 
-def time_train_step(state, batches, steps: int = 20, warmup: int = 5) -> dict:
+def time_train_step(state, batches, model_type: str = "arcface", compute_dtype: str = "bfloat16",
+                    steps: int = 20, warmup: int = 5) -> dict:
     """The train step on device-resident distinct batches after warm-up:
     ms/step by CUDA events, and the busy share over 3 steps."""
     from facerec_torch.train.steps import make_train_step
 
-    step = make_train_step("arcface", "bfloat16")
+    step = make_train_step(model_type, compute_dtype)
     i = 0
 
     def one():
@@ -861,10 +911,10 @@ def evaluate(dev, root: Path, checkpoints: Path, model_name: str, cfg, out_dir: 
     return stats
 
 
-def train(dev) -> tuple[dict, dict]:
+def train(dev, card: str) -> tuple[dict, dict, dict]:
     """Phase 6: the trainer at the arcface_synth configuration, then the
-    eval phase on its checkpoint, in one temporary directory. Returns
-    (train stats, eval stats)."""
+    eval phase on its checkpoint, then the zoo phase beside it, in one
+    temporary directory. Returns (train stats, eval stats, zoo stats)."""
     import tempfile
 
     import PIL
@@ -919,6 +969,8 @@ def train(dev) -> tuple[dict, dict]:
         del batches
         eval_stats = evaluate(dev, root, Path(td) / "checkpoints", "arcface_synth_torch", cfg,
                               Path(td) / "eval")
+        torch.cuda.empty_cache()
+        zoo_stats = zoo(dev, root, Path(td) / "checkpoints", Path(td) / "eval", card)
     agree = train_step_agrees(dev)
     flops = train_flops_per_image(state.model, cfg.image_size) * cfg.batch_size
     tflops = flops / (timed["ms_per_step"] * 1e-3) / 1e12
@@ -942,7 +994,138 @@ def train(dev) -> tuple[dict, dict]:
         "peak_memory_gb": peak / 2**30, "launches_of_port_kernels": launches,
         "card_vs_cpu": {k: agree[k]["rel"] for k in ("loss", "grad_norm")},
     }
-    return stats, eval_stats
+    return stats, eval_stats, zoo_stats
+
+
+def zoo_config(model_type: str):
+    """The arcface_synth configuration (optimizer, schedule, 160 px, batch
+    32, bf16 compute) with ``model_type`` swapped in, for ``ZOO_EPOCHS``."""
+    return arcface_synth_config(ZOO_EPOCHS).replace(model_type=model_type)
+
+
+def zoo_train(dev, model_type: str, root: Path, checkpoints: Path) -> dict:
+    """``train_model`` on one zoo type; then its step on device-resident
+    batches of the train split (CUDA events), the busy share and the peak
+    memory. Raises if a loss is non-finite or the last epoch's train loss
+    is not below the first's."""
+    import torch
+
+    from facerec_torch.train.engine import _make_batchers, train_model
+
+    cfg = zoo_config(model_type)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = train_model(cfg, root, checkpoints_root=checkpoints, model_name=f"{model_type}_zoo",
+                      device=dev)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev)
+    hist = out["history"]
+    keys = ("epoch", "train_loss", "train_acc", "val_loss", "val_acc") + (
+        ("same_acc", "diff_acc") if model_type == "siamese" else ())
+    epochs = [{k: r[k] for k in keys} for r in hist]
+    if not (len(hist) == cfg.epochs and all(math.isfinite(r["train_loss"]) for r in hist)
+            and hist[-1]["train_loss"] < hist[0]["train_loss"]):
+        raise AssertionError(f"zoo {model_type}: the loss did not fall or is not finite: {epochs}")
+    batcher = _make_batchers(root, cfg)[0]["train"]
+    batches = [{k: torch.from_numpy(v).to(dev) for k, v in b.items()} for b in batcher.epoch(0)]
+    timed = time_train_step(out["state"], batches, model_type, cfg.compute_dtype)
+    del batches
+    unit = "pairs_per_s" if model_type == "siamese" else "images_per_s"
+    return {"model_type": model_type, "image_size": cfg.image_size,
+            "batch_size": cfg.batch_size, "epochs": epochs, "best_val_acc": out["best_val_acc"],
+            "test_acc": out.get("test_acc"), "train_model_s": train_s,
+            "steps": out["state"].step, "ms_per_step": timed["ms_per_step"],
+            unit: cfg.batch_size / (timed["ms_per_step"] * 1e-3),
+            "device_busy_share": timed["device_busy_share"],
+            "device_ms_per_step": timed["device_ms_per_step"],
+            "top_kernels_ms_per_step": timed["top_kernels_ms_per_step"],
+            "peak_memory_gb": peak / 2**30,
+            "parameters": out["summary"]["parameters"]["total"]}
+
+
+def zoo_evaluate(dev, model_type: str, root: Path, checkpoints: Path, out_dir: Path,
+                 model=None) -> dict:
+    """``evaluate_model`` on a zoo checkpoint (or on ``model``) and the test
+    split, at the default bf16 compute: the classifier branch, or the
+    siamese branch on fixed pairs."""
+    from facerec_torch.config import EvalConfig
+    from facerec_torch.eval.engine import evaluate_model
+
+    ecfg = EvalConfig(model_type=model_type, model_name=f"{model_type}_zoo",
+                      image_size=zoo_config(model_type).image_size)
+    res = evaluate_model(ecfg, root, checkpoints_root=checkpoints, outputs_root=out_dir,
+                         return_predictions=True, device=dev, model=model)
+    out = {"eval_accuracy": res["accuracy"], "eval_roc_auc": res["roc_auc"],
+           "eval_ms_per_batch": res["avg_inference_time_ms"], "eval_batch": ecfg.batch_size,
+           "eval_items": len(res["_predictions"]["y"])}
+    if model_type == "siamese":
+        out |= {"eval_same_accuracy": res["same_accuracy"],
+                "eval_diff_accuracy": res["diff_accuracy"]}
+    if not 0.0 <= res["accuracy"] <= 1.0:
+        raise AssertionError(f"zoo {model_type}: evaluation failed: {res['accuracy']}")
+    return out
+
+
+def ensemble_agrees(ens, root: Path, dev) -> float:
+    """The average ensemble's logits (f32) on one test batch against the
+    mean of its members' own logits: the largest difference."""
+    import numpy as np
+    import torch
+
+    from facerec_torch.data.datasets import ClassificationBatcher, ImageFolderIndex
+
+    cfg = zoo_config("ensemble")
+    b = next(iter(ClassificationBatcher(ImageFolderIndex.build(root / "test"), cfg.batch_size,
+                                        cfg.image_size, shuffle=False).epoch(0)))
+    x = torch.from_numpy(np.ascontiguousarray(b["image"])).to(dev)
+    ens = ens.to(dev).eval()
+    with torch.no_grad():
+        zeros = torch.zeros(len(x), dtype=torch.long, device=dev)
+        members = [m(x, labels=zeros) if t == "arcface" else m(x)
+                   for m, t in zip(ens.members, ens.member_types)]
+        err = (ens(x) - torch.stack(members).float().mean(0)).abs().max().item()
+    if not err <= ENSEMBLE_ATOL:
+        raise AssertionError(f"the ensemble's logits are not its members' mean: {err}")
+    return err
+
+
+def zoo(dev, root: Path, checkpoints: Path, out_dir: Path, card: str) -> dict:
+    """The zoo phase, on the train phase's tree and beside its ArcFace
+    checkpoint: train each of ``ZOO_TYPES``, hold one f32 step of each on
+    the card against the CPU, evaluate each checkpoint, then the default
+    ensemble (cnn + attention + the train phase's ArcFace) built by
+    ``create_pretrained_ensemble``. Neither kernel lies on this path: their
+    launches are counted over the phase and must be 0."""
+    import torch
+
+    from facerec_torch.models.ensemble import create_pretrained_ensemble
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    rows = {}
+    for mt in ZOO_TYPES:
+        rows[mt] = zoo_train(dev, mt, root, checkpoints)
+        torch.cuda.empty_cache()
+    for mt in ZOO_TYPES:
+        rows[mt]["card_vs_cpu"] = {k: v["rel"] for k, v in train_step_agrees(dev, mt).items()
+                                   if k in ("loss", "grad_norm")}
+        rows[mt] |= zoo_evaluate(dev, mt, root, checkpoints, out_dir)
+    ens = create_pretrained_ensemble({"cnn": "cnn_zoo", "attention": "attention_zoo",
+                                      "arcface": "arcface_synth_torch"}, 16,
+                                     checkpoints_root=checkpoints)
+    err = ensemble_agrees(ens, root, dev)
+    rows["ensemble"] = {"model_type": "ensemble", "members": ens.member_types,
+                        "method": ens.ensemble_method, "mean_of_members_max_err": err,
+                        **zoo_evaluate(dev, "ensemble", root, checkpoints, out_dir, model=ens)}
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _launches()
+    for row in rows.values():
+        print("zoo: " + json.dumps(row | {"card": card}), flush=True)
+    if any(launches.values()):
+        raise AssertionError(f"the zoo path launched a serve kernel: {launches}")
+    return {"seconds": seconds, "launches_of_port_kernels": launches, "types": list(rows)}
 
 
 def packed_agrees(pipe, frames) -> dict:
@@ -1162,11 +1345,13 @@ def main() -> int:
         if path != "serve":
             del pipes[path]
         torch.cuda.empty_cache()
-    train_stats, eval_stats = train(dev)
+    train_stats, eval_stats, zoo_stats = train(dev, card)
     launches["train"] = train_stats["launches_of_port_kernels"]
     launches["eval"] = eval_stats["launches_of_port_kernels"]
+    launches["zoo"] = zoo_stats["launches_of_port_kernels"]
     print("train: " + json.dumps(train_stats | {"card": card}), flush=True)
     print("eval: " + json.dumps(eval_stats | {"card": card}), flush=True)
+    print(f"zoo: phase {zoo_stats['seconds']:.1f} s; launches {launches['zoo']}", flush=True)
     if any(launches["eval"].values()):
         raise AssertionError(f"the eval path launched a serve kernel: {launches['eval']}")
     torch.cuda.empty_cache()

@@ -5,13 +5,16 @@ anything ``np.asarray`` reads) as the JAX package stores it, either a bare
 ``params`` tree (the MTCNN ``.npz`` files) or ``{"params", "batch_stats"}``
 (the embedder, and the models the trainer trains, whose statistics may come
 from ``apply(..., mutable=["batch_stats"])``), and returns a
-``{key: torch.Tensor}`` state dict for ``which`` in
-pnet/rnet/onet/arcface/baseline. Conv kernels go HWIO -> OIHW, dense
-kernels [in, out] -> [out, in]; ArcFace's class centres ``arc_weight``
-[C, D] carry over as they are. No row permutation is needed before the
-R-Net/O-Net dense layers because the port flattens their feature maps in
-NHWC order, as the JAX nets do. A gradient tree has the parameters' shape,
-so it carries over the same way.
+``{key: torch.Tensor}`` state dict for ``which`` in pnet/rnet/onet and the
+seven trainable types (baseline, cnn, siamese, attention, arcface, hybrid,
+ensemble). Conv kernels go HWIO -> OIHW, dense kernels [in, out] -> [out,
+in], LayerNorm ``scale`` -> ``weight``; the attention's [D, H, D/H] and
+[H, D/H, D] kernels flatten to [D, D]; ArcFace's class centres
+``arc_weight`` [C, D], the hybrid's ``pos_encoding`` and the attention's
+``gamma`` carry over as they are. No row permutation is needed before the
+R-Net/O-Net/siamese dense layers because the port flattens their feature
+maps in NHWC order, as the JAX nets do. A gradient tree has the
+parameters' shape, so it carries over the same way.
 """
 
 from __future__ import annotations
@@ -70,8 +73,87 @@ def _resnet18(p: Mapping, s: Mapping, out: dict, prefix: str) -> None:
                 _bn(bp["downsample_bn"], bs["downsample_bn"], out, f"{t}.downsample.1")
 
 
-def from_jax(tree: Mapping[str, Any], which: str) -> dict[str, torch.Tensor]:
-    """JAX parameter tree -> state dict of the port's ``which`` network."""
+def _layer_norm(p: Mapping, out: dict, key: str) -> None:
+    out[f"{key}.weight"] = _t(p["scale"])
+    out[f"{key}.bias"] = _t(p["bias"])
+
+
+def _mha(p: Mapping, out: dict, key: str) -> None:
+    """Flax's MultiHeadDotProductAttention: [D, H, D/H] query/key/value
+    kernels with [H, D/H] biases and an [H, D/H, D] output kernel, as [D, D]
+    ``nn.Linear`` weights (heads major in the projected dim)."""
+    for name in ("query", "key", "value"):
+        k = np.asarray(p[name]["kernel"], np.float32)
+        out[f"{key}.{name}.weight"] = _t(k.reshape(k.shape[0], -1).T)
+        out[f"{key}.{name}.bias"] = _t(np.asarray(p[name]["bias"], np.float32).reshape(-1))
+    k = np.asarray(p["out"]["kernel"], np.float32)
+    out[f"{key}.out.weight"] = _t(k.reshape(-1, k.shape[-1]).T)
+    out[f"{key}.out.bias"] = _t(p["out"]["bias"])
+
+
+def _model(params: Mapping, stats: Mapping, out: dict, which: str, prefix: str = "",
+           member_types: list[str] | None = None) -> None:
+    """The state dict of one of the seven trainable model types, its keys
+    under ``prefix``."""
+    if which == "arcface":
+        _resnet18(params["backbone"], stats["backbone"], out, f"{prefix}backbone.")
+        _dense(params["embedding"], out, f"{prefix}embedding")
+        _bn(params["bn"], stats["bn"], out, f"{prefix}bn")
+        out[f"{prefix}arc_weight"] = _t(params["arc_weight"])
+    elif which == "baseline":
+        for i in (1, 2, 3):
+            _conv(params[f"conv{i}"], out, f"{prefix}conv{i}")
+            _bn(params[f"bn{i}"], stats[f"bn{i}"], out, f"{prefix}bn{i}")
+        _dense(params["fc1"], out, f"{prefix}fc1")
+        _dense(params["fc2"], out, f"{prefix}fc2")
+    elif which in ("cnn", "attention", "hybrid"):
+        _resnet18(params["backbone"], stats["backbone"], out, f"{prefix}backbone.")
+        _dense(params["fc"], out, f"{prefix}fc")
+        if which == "attention":
+            a, t = params["attention"], f"{prefix}attention"
+            for name in ("query", "key", "value"):
+                _conv(a[name], out, f"{t}.{name}")
+            out[f"{t}.gamma"] = _t(a["gamma"])
+            _conv(a["spatial_attention"]["conv"], out, f"{t}.spatial_attention.conv")
+        elif which == "hybrid":
+            out[f"{prefix}pos_encoding"] = _t(params["pos_encoding"])
+            b, t = params["transformer"], f"{prefix}transformer"
+            _layer_norm(b["norm1"], out, f"{t}.norm1")
+            _mha(b["attention"], out, f"{t}.attention")
+            _layer_norm(b["norm2"], out, f"{t}.norm2")
+            _dense(b["ff1"], out, f"{t}.ff1")
+            _dense(b["ff2"], out, f"{t}.ff2")
+            _layer_norm(params["norm"], out, f"{prefix}norm")
+    elif which == "siamese":
+        for i in range(6):
+            _conv(params[f"conv{i}"], out, f"{prefix}conv{i}")
+            _bn(params[f"conv_bn{i}"], stats[f"conv_bn{i}"], out, f"{prefix}conv_bn{i}")
+        for i in (1, 2, 3):
+            _dense(params[f"fc{i}"], out, f"{prefix}fc{i}")
+        for i in (1, 2):
+            _bn(params[f"fc_bn{i}"], stats[f"fc_bn{i}"], out, f"{prefix}fc_bn{i}")
+    elif which == "ensemble":
+        if member_types is None:
+            from facerec_torch.models import DEFAULT_ENSEMBLE_MEMBERS
+
+            member_types = DEFAULT_ENSEMBLE_MEMBERS
+        for i, t in enumerate(member_types):
+            name = f"members_{i}"
+            _model(params[name], stats.get(name, {}), out, t, f"{prefix}{name}.")
+        if "weights" in params:
+            out[f"{prefix}weights"] = _t(params["weights"])
+        for name in ("attn1", "attn2"):
+            if name in params:
+                _dense(params[name], out, f"{prefix}{name}")
+    else:
+        raise ValueError(f"no converter for {which!r}")
+
+
+def from_jax(tree: Mapping[str, Any], which: str,
+             member_types: list[str] | None = None) -> dict[str, torch.Tensor]:
+    """JAX parameter tree -> state dict of the port's ``which`` network. An
+    ``ensemble``'s members are converted by their types, ``member_types``
+    (default: the default members cnn, attention, arcface)."""
     params = tree["params"] if "params" in tree else tree
     stats = tree.get("batch_stats", {}) if "params" in tree else {}
     out: dict[str, torch.Tensor] = {}
@@ -83,17 +165,6 @@ def from_jax(tree: Mapping[str, Any], which: str) -> dict[str, torch.Tensor]:
             out[f"prelu{i}.weight"] = _t(params[f"prelu{i}"]["alpha"])
         for d in denses:
             _dense(params[d], out, d)
-    elif which == "arcface":
-        _resnet18(params["backbone"], stats["backbone"], out, "backbone.")
-        _dense(params["embedding"], out, "embedding")
-        _bn(params["bn"], stats["bn"], out, "bn")
-        out["arc_weight"] = _t(params["arc_weight"])
-    elif which == "baseline":
-        for i in (1, 2, 3):
-            _conv(params[f"conv{i}"], out, f"conv{i}")
-            _bn(params[f"bn{i}"], stats[f"bn{i}"], out, f"bn{i}")
-        _dense(params["fc1"], out, "fc1")
-        _dense(params["fc2"], out, "fc2")
     else:
-        raise ValueError(f"no converter for {which!r}")
+        _model(params, stats, out, which, member_types=member_types)
     return out

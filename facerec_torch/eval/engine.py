@@ -12,8 +12,14 @@ warm-up; on the CPU, the wall clock (the CPU computes synchronously). The
 JAX engine's slope between two dispatch chains works around a TPU runtime's
 execution cache and missing barrier, neither of which a CUDA card has.
 
-The siamese branch waits for the pair batcher and the siamese model (ROADMAP
-section 1) and is refused by name.
+A siamese model is evaluated on fixed verification pairs (one same and one
+different pair anchored at every test image): a pair is predicted same when
+its embedding distance is below ``siamese_distance_threshold``; ROC-AUC and
+PR-AUC are taken on the negated distance, and ``roc_curve.csv``,
+``person_recognition_matrix.csv`` and ``per_person_accuracy.csv`` are
+written. Every other type, ensembles included, takes the classifier branch.
+``predict_image`` refuses a siamese model, which has no classes (the JAX
+one cannot run it either).
 """
 
 from __future__ import annotations
@@ -32,6 +38,7 @@ from facerec_torch.config import CHECKPOINTS_DIR, OUTPUTS_DIR, PROC_DATA_DIR, Ev
 from facerec_torch.data.datasets import (
     ClassificationBatcher,
     ImageFolderIndex,
+    SiamesePairBatcher,
     _imagenet_normalize,
     _load_image,
 )
@@ -56,13 +63,6 @@ def discover_test_dir(dataset_path: str | Path | None = None) -> Path:
     if not candidates:
         raise FileNotFoundError(f"no test split found under {PROC_DATA_DIR}")
     return candidates[0]
-
-
-def _refuse_siamese(model_type: str) -> None:
-    if model_type == "siamese":
-        raise NotImplementedError(
-            "evaluating a siamese model is not ported to facerec_torch yet: it waits for the "
-            "pair batcher and the other five model types (ROADMAP section 1)")
 
 
 def _load_model_for_eval(model_type: str, model_name: str, num_classes: int,
@@ -121,16 +121,18 @@ def evaluate_model(
     outputs_root: str | Path | None = None,
     return_predictions: bool = False,
     device: str | torch.device | None = None,
+    model: torch.nn.Module | None = None,
 ) -> dict[str, Any]:
     """Evaluate the ``best`` (else ``final``) checkpoint of
-    ``config.model_name`` under ``checkpoints_root`` on a test split, on
+    ``config.model_name`` under ``checkpoints_root``, or ``model`` when one
+    is given (e.g. ``create_pretrained_ensemble``'s), on a test split, on
     ``device`` (default: the CUDA card); writes the JAX engine's artifact
     set under ``<outputs_root>/<model_name>`` and returns the metrics dict.
     ``return_predictions`` keeps the per-image arrays (``_predictions``:
-    labels, argmax, probabilities, in the split's sorted order) in the
-    returned dict; they are never written to JSON."""
+    labels, argmax, probabilities in the split's sorted order; for siamese
+    pair labels, predictions and distances in the fixed pairs' order) in
+    the returned dict; they are never written to JSON."""
     dev = resolve_device(device)
-    _refuse_siamese(config.model_type)
     checkpoints_root = Path(checkpoints_root or CHECKPOINTS_DIR)
     outputs_root = Path(outputs_root or OUTPUTS_DIR)
     test_dir = discover_test_dir(dataset_path)
@@ -138,12 +140,18 @@ def evaluate_model(
     model_type = config.model_type
     model_name = config.model_name or model_type
 
-    model = _load_model_for_eval(model_type, model_name, index.num_classes, checkpoints_root,
-                                 dev)
+    if model is None:
+        model = _load_model_for_eval(model_type, model_name, index.num_classes,
+                                     checkpoints_root, dev)
+    else:
+        model = model.to(dev).eval()
     out_dir = outputs_root / model_name
     out_dir.mkdir(parents=True, exist_ok=True)
 
-    results = _evaluate_classifier(model, index, config, dev, out_dir, model_type)
+    if model_type == "siamese":
+        results = _evaluate_siamese(model, index, config, dev, out_dir)
+    else:
+        results = _evaluate_classifier(model, index, config, dev, out_dir, model_type)
     predictions = results.pop("_predictions")
     results["model_name"] = model_name
     results["model_type"] = model_type
@@ -200,6 +208,87 @@ def _evaluate_classifier(model, index, config: EvalConfig, dev: torch.device, ou
     return results
 
 
+def _evaluate_siamese(model, index, config: EvalConfig, dev: torch.device,
+                      out_dir: Path) -> dict[str, Any]:
+    @torch.no_grad()
+    def apply_fn(batch: dict) -> torch.Tensor:
+        with _autocast(dev, config.compute_dtype):
+            ea, eb = model(batch["image_a"], batch["image_b"])
+        return torch.sqrt(torch.clamp(((ea.float() - eb.float()) ** 2).sum(-1), min=1e-24))
+
+    batcher = SiamesePairBatcher(index, config.batch_size, config.image_size, fixed_pairs=True)
+    dists, ys, las, lbs, kept = [], [], [], [], []
+    n_batches = 0
+    for batch in prefetch_to_device(batcher.epoch(0), dev):
+        if len(kept) < 8:
+            kept.append(batch)
+        d = apply_fn(batch).cpu().numpy()
+        m = batch["mask"].cpu().numpy().astype(bool)
+        dists.append(d[m])
+        for acc, key in ((ys, "pair_label"), (las, "label_a"), (lbs, "label_b")):
+            acc.append(batch[key].cpu().numpy()[m])
+        n_batches += 1
+    ms_per_batch = _latency_ms(apply_fn, kept, dev)
+    dist, y, la, lb = (np.concatenate(v) for v in (dists, ys, las, lbs))
+    threshold = config.siamese_distance_threshold
+    yhat = (dist < threshold).astype(np.int64)
+
+    prec, rec, f1 = M.precision_recall_f1(y, yhat, "weighted")
+    fpr, tpr, _ = M.roc_curve(y, -dist)
+    results = {
+        "accuracy": M.accuracy(y, yhat),
+        "precision": prec,
+        "recall": rec,
+        "f1": f1,
+        "roc_auc": M.auc(fpr, tpr),
+        "pr_auc": M.average_precision(y, -dist),
+        "same_accuracy": M.accuracy(y[y == 1], yhat[y == 1]),
+        "diff_accuracy": M.accuracy(y[y == 0], yhat[y == 0]),
+        "avg_inference_time_ms": ms_per_batch,
+        "throughput_pairs_per_sec": float(
+            (len(y) / max(n_batches, 1)) / max(ms_per_batch / 1000.0, 1e-9)),
+        "distance_threshold": threshold,
+        "_predictions": {"y": y, "yhat": yhat, "dist": dist},
+    }
+    with (out_dir / "roc_curve.csv").open("w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["fpr", "tpr"])
+        w.writerows(zip(fpr.tolist(), tpr.tolist()))
+    results["per_person_accuracy"] = _write_person_matrix(out_dir, index.class_names, dist, y,
+                                                          la, lb, threshold)
+    return results
+
+
+def _write_person_matrix(out_dir: Path, names: list[str], dist: np.ndarray, y: np.ndarray,
+                         la: np.ndarray, lb: np.ndarray, threshold: float) -> dict[str, float]:
+    """The person-by-person recognition rate (``person_recognition_matrix.csv``:
+    the share of the pairs of persons a and b decided right) and each
+    person's accuracy over all their pairs (``per_person_accuracy.csv``)."""
+    n = len(names)
+    correct = np.zeros((n, n))
+    total = np.zeros((n, n))
+    for d, t, a, b in zip(dist, y, la, lb):
+        ok = int((d < threshold) == bool(t))
+        correct[a, b] += ok
+        correct[b, a] += ok
+        total[a, b] += 1
+        total[b, a] += 1
+    with np.errstate(invalid="ignore"):
+        rate = np.where(total > 0, correct / np.maximum(total, 1), np.nan)
+    with (out_dir / "person_recognition_matrix.csv").open("w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow([""] + names)
+        for i, nm in enumerate(names):
+            w.writerow([nm] + [f"{rate[i, j]:.3f}" if total[i, j] else "" for j in range(n)])
+    per_person = {names[i]: float(np.nansum(correct[i]) / max(np.nansum(total[i]), 1))
+                  for i in range(n)}
+    with (out_dir / "per_person_accuracy.csv").open("w", newline="") as f:
+        w = csv.writer(f)
+        w.writerow(["person", "accuracy"])
+        w.writerows(per_person.items())
+    return per_person
+
+
 def _write_curves_csv(out_dir: Path, y: np.ndarray, probs: np.ndarray, names: list[str]) -> None:
     """Per-class ROC and PR curves (``roc_curves.csv``, ``pr_curves.csv``)."""
     with (out_dir / "roc_curves.csv").open("w", newline="") as f:
@@ -244,7 +333,9 @@ def predict_image(
     from the checkpoint ``evaluate_model`` would load, on ``device``
     (default: the CUDA card)."""
     dev = resolve_device(device)
-    _refuse_siamese(config.model_type)
+    if config.model_type == "siamese":
+        raise ValueError("predict_image classifies one image; a siamese model has no classes "
+                         "(it compares pairs: evaluate it with evaluate_model)")
     model = _load_model_for_eval(config.model_type, config.model_name or config.model_type,
                                  len(class_names), Path(checkpoints_root or CHECKPOINTS_DIR), dev)
     x = _imagenet_normalize(_load_image(image_path, config.image_size))[None]

@@ -23,14 +23,16 @@ from facerec_torch.models.resnet import BatchNorm, ResNet18
 from facerec_torch.ops.arcface import arc_margin_logits, cosine_logits, l2_normalize
 
 
-def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            shape: tuple[int, ...] | None = None) -> torch.Tensor:
     """Flax's ``nn.Dropout`` in train mode: keep each value with probability
-    1 - rate and scale it by 1 / (1 - rate), the draws from ``generator``."""
+    1 - rate and scale it by 1 / (1 - rate), the draws from ``generator``.
+    ``shape`` draws one mask of that shape, broadcast over ``x``."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    keep = torch.rand(shape or x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 
@@ -99,10 +101,18 @@ def _variance_scaling_(w: torch.Tensor, scale: float, generator: torch.Generator
 
 def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
     """Seeded initialisation with Flax's defaults: convolution and dense
-    kernels LeCun-normal (std 1/sqrt(fan_in)), biases 0, BatchNorm scale 1,
-    bias 0, running mean 0, running variance 1; then ArcFace's class centres
-    (variance scaling 2.0, fan_avg, truncated normal), drawn last so the
-    trunk's weights do not depend on the class count."""
+    kernels LeCun-normal (std 1/sqrt(fan_in); the attention's [D, D]
+    projections have fan-in D, as Flax's [D, H, D/H] and [H, D/H, D]
+    kernels do), biases 0, BatchNorm and LayerNorm scale 1, bias 0, running
+    mean 0, running variance 1, the attention residual ``gamma`` 0 and an
+    ensemble's ``weights`` 1/n; then the parameters drawn after the trunks,
+    so that a trunk's weights do not depend on the class count: the hybrid's
+    positional table (normal(0.02)) and ArcFace's class centres (variance
+    scaling 2.0, fan_avg, truncated normal)."""
+    from facerec_torch.models.attention import AttentionModule
+    from facerec_torch.models.ensemble import EnsembleModel
+    from facerec_torch.models.hybrid import HybridNet
+
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, (nn.Conv2d, nn.Linear)):
@@ -110,10 +120,16 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
                 m.weight.normal_(0.0, fan_in ** -0.5, generator=generator)
                 if m.bias is not None:
                     m.bias.zero_()
-            elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d)):
+            elif isinstance(m, (nn.BatchNorm1d, nn.BatchNorm2d, nn.LayerNorm)):
                 m.reset_parameters()
+            elif isinstance(m, AttentionModule):
+                m.gamma.zero_()
+            elif isinstance(m, EnsembleModel) and hasattr(m, "weights"):
+                m.weights.fill_(1.0 / len(m.weights))
         for m in model.modules():
-            if isinstance(m, ArcFaceNet):
+            if isinstance(m, HybridNet):
+                m.pos_encoding.normal_(0.0, 0.02, generator=generator)
+            elif isinstance(m, ArcFaceNet):
                 _variance_scaling_(m.arc_weight, 2.0, generator)
 
 

@@ -16,12 +16,14 @@ optimizer's hyperparameters. The behaviour follows the JAX engine:
     scheduler and stopper), the final save, the test evaluation, the
     confusion matrix and ``model_info.json``.
 
-Images load as the JAX engine loads them: through the native JPEG loader
-(``data/native_loader.py``) when it builds and every path of a split is a
-JPEG, otherwise through ``ClassificationBatcher`` (PIL), so that both
-trainers see the same batches. The JAX engine's LR finder, its mesh and the
-model types other than ``baseline`` and ``arcface`` are not ported yet
-(ROADMAP).
+It trains all seven model types. Images load as the JAX engine loads them:
+through the native JPEG loader (``data/native_loader.py``) when it builds
+and every path of a split is a JPEG, otherwise through
+``ClassificationBatcher`` (PIL), so that both trainers see the same
+batches; a siamese model trains on ``SiamesePairBatcher``'s random pairs
+and is validated and tested on its fixed pairs, and its epoch log and
+history carry the same-pair and different-pair accuracies. The JAX
+engine's LR finder and its mesh are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -36,7 +38,7 @@ import torch
 from facerec_torch import resolve_device
 from facerec_torch.config import CHECKPOINTS_DIR, TrainConfig, logger
 from facerec_torch.data import native_loader
-from facerec_torch.data.datasets import ClassificationBatcher, ImageFolderIndex
+from facerec_torch.data.datasets import ClassificationBatcher, ImageFolderIndex, SiamesePairBatcher
 from facerec_torch.data.pipeline import prefetch_to_device
 from facerec_torch.eval.metrics import confusion_matrix, count_parameters
 from facerec_torch.models import get_model
@@ -50,9 +52,10 @@ from facerec_torch.train.early_stopping import EarlyStopping
 from facerec_torch.train.results import ResultsManager, next_model_version
 from facerec_torch.train.schedulers import get_scheduler
 from facerec_torch.train.state import MODEL_CLIP_NORMS, TrainState, create_train_state, set_hyperparam
-from facerec_torch.train.steps import make_eval_step, make_train_step
+from facerec_torch.train.steps import SIAMESE_THRESHOLD, make_eval_step, make_train_step
 
 METRIC_KEYS = ("loss_sum", "correct", "count", "grad_norm")
+PAIR_KEYS = ("same_correct", "same_count", "diff_correct", "diff_count")  # siamese
 
 
 def _make_batchers(data_dir: Path, config: TrainConfig):
@@ -67,8 +70,12 @@ def _make_batchers(data_dir: Path, config: TrainConfig):
             continue
         index = ImageFolderIndex.build(d)
         num_classes = max(num_classes, index.num_classes)
-        out[split] = _classification_batcher(index, config.batch_size, config.image_size,
-                                             shuffle=(split == "train"), seed=config.seed)
+        if config.model_type == "siamese":
+            out[split] = SiamesePairBatcher(index, config.batch_size, config.image_size,
+                                            fixed_pairs=(split != "train"), seed=config.seed)
+        else:
+            out[split] = _classification_batcher(index, config.batch_size, config.image_size,
+                                                 shuffle=(split == "train"), seed=config.seed)
     return out, num_classes
 
 
@@ -86,12 +93,15 @@ def _classification_batcher(index: ImageFolderIndex, batch_size: int, image_size
 def _run_epoch(step_fn: Callable, state: TrainState, batcher, device: torch.device, epoch: int,
                train: bool, max_batches: int = 0, prefetch: int = 2) -> dict[str, float]:
     """One pass over a batcher. The step's metrics are summed on the device
-    in f64 and read once, at the end."""
+    in f64 and read once, at the end; a siamese pass also gives the
+    accuracy on the same pairs and on the different pairs."""
     keys = METRIC_KEYS if train else METRIC_KEYS[:3]
     sums = None
     n_batches = 0
     for batch in prefetch_to_device(batcher.epoch(epoch), device, depth=prefetch):
         metrics = step_fn(state, batch)
+        if sums is None and "same_count" in metrics:
+            keys += PAIR_KEYS
         vals = torch.stack([metrics[k] for k in keys]).double()
         sums = vals if sums is None else sums + vals
         n_batches += 1
@@ -105,6 +115,9 @@ def _run_epoch(step_fn: Callable, state: TrainState, batcher, device: torch.devi
         "examples": count,
         "batches": n_batches,
     }
+    if "same_count" in totals:
+        agg["same_acc"] = totals["same_correct"] / max(totals["same_count"], 1.0)
+        agg["diff_acc"] = totals["diff_correct"] / max(totals["diff_count"], 1.0)
     if train and n_batches:
         agg["grad_norm"] = totals["grad_norm"] / n_batches
     return agg
@@ -235,10 +248,16 @@ def train_model(
                        val_loss=round(val_m["loss"], 6), val_acc=round(val_m["acc"], 6),
                        best_val_acc=round(best_val_acc, 6), lr=lr, time_elapsed=round(elapsed, 3))
             results.record_epoch(**row)
+            for key in ("same_acc", "diff_acc"):  # siamese, beside the CSV's columns
+                if key in val_m:
+                    row[key] = round(val_m[key], 6)
             history_rows.append(row)
-            logger.info("[%s] epoch %d/%d loss=%.4f acc=%.4f val_loss=%.4f val_acc=%.4f lr=%.2e %.1fs",
+            extra = ""
+            if "same_acc" in val_m:
+                extra = f" same_acc={val_m['same_acc']:.3f} diff_acc={val_m['diff_acc']:.3f}"
+            logger.info("[%s] epoch %d/%d loss=%.4f acc=%.4f val_loss=%.4f val_acc=%.4f lr=%.2e %.1fs%s",
                         name, epoch + 1, config.epochs, train_m["loss"], train_m["acc"],
-                        val_m["loss"], val_m["acc"], lr, elapsed)
+                        val_m["loss"], val_m["acc"], lr, elapsed, extra)
 
             if two_phase and epoch + 1 == transition_epoch:
                 set_hyperparam(opt, "backbone_scale", 1.0)
@@ -302,7 +321,7 @@ def train_model(
 def _test(state: TrainState, batcher, model_type: str, config: TrainConfig, dev: torch.device,
           results: ResultsManager) -> dict[str, float]:
     """Test loss and accuracy, and the confusion matrix (written to
-    ``metrics/confusion_matrix.json``)."""
+    ``metrics/confusion_matrix.json``; 2 x 2 of pair labels for siamese)."""
     step = make_eval_step(model_type, config.compute_dtype, return_outputs=True)
     y_true, y_pred = [], []
     sums = {"loss_sum": 0.0, "correct": 0.0, "count": 0.0}
@@ -312,8 +331,12 @@ def _test(state: TrainState, batcher, model_type: str, config: TrainConfig, dev:
         for k in sums:
             sums[k] += float(m[k])
         mask = batch["mask"].bool().cpu().numpy()
-        y_pred.extend(m["probs"].argmax(-1).cpu().numpy()[mask].tolist())
-        y_true.extend(batch["label"].cpu().numpy()[mask].tolist())
+        if model_type == "siamese":
+            y_pred.extend((m["distances"] < SIAMESE_THRESHOLD).long().cpu().numpy()[mask].tolist())
+            y_true.extend(batch["pair_label"].cpu().numpy()[mask].tolist())
+        else:
+            y_pred.extend(m["probs"].argmax(-1).cpu().numpy()[mask].tolist())
+            y_true.extend(batch["label"].cpu().numpy()[mask].tolist())
         n_b += 1
         if config.max_test_batches and n_b >= config.max_test_batches:
             break

@@ -49,8 +49,12 @@ def _bias_correction(decay: float, count: int) -> float:
 
 
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
-    """sqrt of the sum of squares of every element (a 0-d f32 tensor)."""
-    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors)).float())
+    """sqrt of the sum of squares of every element (a 0-d f32 tensor). On
+    the CPU each tensor's norm accumulates in f64: PyTorch's f32 CPU norm
+    sums in sequence, 9e-4 off on the siamese ``fc1`` gradient's 18.9M
+    elements; the card's kernel reduces in a tree."""
+    dtype = torch.float64 if tensors[0].device.type == "cpu" else None
+    return torch.linalg.vector_norm(torch.stack(torch._foreach_norm(tensors, 2, dtype=dtype))).float()
 
 
 class OptaxChain:

@@ -12,8 +12,10 @@ mode). In the train step:
   * ``loss_sum = loss * count``, so that an epoch's loss is a mean over its
     valid examples.
 
-Metrics come back as 0-d tensors on the batch's device; the engine reads
-them once per epoch. ``compute_dtype`` "bfloat16" runs the model under
+Metrics come back as 0-d tensors on the model's device; the engine reads
+them once per epoch. A siamese batch is a pair batch (``image_a``,
+``image_b``, ``pair_label``), and its metrics also count the same and the
+different pairs apart. ``compute_dtype`` "bfloat16" runs the model under
 autocast with f32 parameters; the margin logits and the loss stay f32.
 The train step's parts are named ranges (``train_step.forward``,
 ``.backward``, ``.grads``, ``.optimizer``) that torch.profiler reports.
@@ -27,7 +29,10 @@ import torch
 from torch.profiler import record_function
 
 from facerec_torch.models import get_criterion
+from facerec_torch.models.losses import pairwise_distance
 from facerec_torch.train.state import TrainState, global_norm
+
+SIAMESE_THRESHOLD = 0.5  # distance below which a pair counts as the same person
 
 
 def _autocast(device: torch.device, compute_dtype: str):
@@ -37,21 +42,39 @@ def _autocast(device: torch.device, compute_dtype: str):
 def _forward(model, model_type: str, batch: dict, epoch: float,
              generator: torch.Generator | None = None):
     """The model's outputs in its current mode: an arcface model takes the
-    labels (margin logits in training, cosine logits in eval)."""
+    labels (margin logits in training, cosine logits in eval); a siamese
+    model takes both images of each pair and gives both embeddings."""
+    if model_type == "siamese":
+        return model(batch["image_a"], batch["image_b"], generator=generator)
     if model_type == "arcface":
         return model(batch["image"], labels=batch["label"], epoch=epoch, generator=generator)
     return model(batch["image"], generator=generator)
 
 
-def _batch_metrics(outputs: torch.Tensor, batch: dict) -> dict[str, torch.Tensor]:
-    """Correct count and count (valid examples only)."""
-    correct = (outputs.argmax(-1) == batch["label"].long()).float()
+def _device(model: torch.nn.Module) -> torch.device:
+    return next(model.parameters()).device
+
+
+def _batch_metrics(model_type: str, outputs, batch: dict,
+                   threshold: float = SIAMESE_THRESHOLD) -> dict[str, torch.Tensor]:
+    """Correct count and count (valid examples only); for siamese, a pair
+    is predicted same when its distance is below ``threshold``, and the
+    same and different pairs are also counted apart."""
     mask = batch.get("mask")
-    if mask is None:
-        return {"correct": correct.sum(),
-                "count": torch.full((), float(correct.numel()), device=correct.device)}
-    m = mask.float()
-    return {"correct": (correct * m).sum(), "count": m.sum()}
+    if model_type == "siamese":
+        ea, eb = outputs
+        correct = ((pairwise_distance(ea, eb) < threshold).long()
+                   == batch["pair_label"].long()).float()
+        same = batch["pair_label"].float()
+    else:
+        correct = (outputs.argmax(-1) == batch["label"].long()).float()
+    m = torch.ones_like(correct) if mask is None else mask.float()
+    out = {"correct": (correct * m).sum(), "count": m.sum()}
+    if model_type == "siamese":
+        out |= {"same_correct": (correct * same * m).sum(), "same_count": (same * m).sum(),
+                "diff_correct": (correct * (1 - same) * m).sum(),
+                "diff_count": ((1 - same) * m).sum()}
+    return out
 
 
 def make_train_step(model_type: str, compute_dtype: str = "float32") -> Callable:
@@ -61,7 +84,7 @@ def make_train_step(model_type: str, compute_dtype: str = "float32") -> Callable
         model = state.model
         if not model.training:
             model.train()
-        dev = batch["image"].device
+        dev = _device(model)
         params = state.opt_state.params
         with record_function("train_step.forward"):
             with _autocast(dev, compute_dtype):
@@ -73,7 +96,7 @@ def make_train_step(model_type: str, compute_dtype: str = "float32") -> Callable
         with record_function("train_step.grads"), torch.no_grad():
             grads = [torch.zeros_like(p) if g is None else torch.nan_to_num_(g, 0.0, 0.0, 0.0)
                      for g, p in zip(grads, params)]
-            metrics = _batch_metrics(outputs.detach(), batch)
+            metrics = _batch_metrics(model_type, outputs, batch)
             metrics["grad_norm"] = global_norm(grads)
             metrics["loss_sum"] = loss.detach() * metrics["count"]
         with record_function("train_step.optimizer"):
@@ -92,14 +115,16 @@ def make_eval_step(model_type: str, compute_dtype: str = "float32",
     def eval_step(state: TrainState, batch: dict) -> dict[str, Any]:
         if state.model.training:
             state.model.eval()
-        dev = batch["image"].device
-        with _autocast(dev, compute_dtype):
+        with _autocast(_device(state.model), compute_dtype):
             outputs = _forward(state.model, model_type, batch, state.epoch)
         loss = loss_fn(outputs, batch, batch.get("mask"))
-        metrics = _batch_metrics(outputs, batch)
+        metrics = _batch_metrics(model_type, outputs, batch)
         metrics["loss_sum"] = loss * metrics["count"]
         if return_outputs:
-            metrics["probs"] = torch.softmax(outputs.float(), dim=-1)
+            if model_type == "siamese":
+                metrics["distances"] = pairwise_distance(*outputs)
+            else:
+                metrics["probs"] = torch.softmax(outputs.float(), dim=-1)
         return metrics
 
     return eval_step

@@ -126,10 +126,14 @@ def test_predict_image_matches_jax(evaluated, tree):
 
 
 def test_evaluate_model_refuses_siamese(tree, tmp_path):
-    with pytest.raises(NotImplementedError, match="siamese"):
+    """``evaluate_model`` now evaluates a siamese model (its verification
+    branch, held against JAX's in tests/test_torch_siamese.py); it only
+    needs the checkpoint. ``predict_image`` still refuses one by name: a
+    twin model has no classes, and JAX's cannot run it either."""
+    with pytest.raises(FileNotFoundError):
         evaluate_model(EvalConfig(model_type="siamese", image_size=SIZE), tree,
                        checkpoints_root=tmp_path, outputs_root=tmp_path, device="cpu")
-    with pytest.raises(NotImplementedError, match="siamese"):
+    with pytest.raises(ValueError, match="siamese"):
         predict_image(next((tree / "test").glob("*/*.jpg")),
                       EvalConfig(model_type="siamese", image_size=SIZE), ["a"],
                       checkpoints_root=tmp_path, device="cpu")

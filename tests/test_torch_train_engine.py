@@ -184,7 +184,7 @@ def test_resume_matches_uninterrupted(tmp_path):
 
 
 @pytest.mark.parametrize("change,match", [
-    (dict(model_type="siamese"), "ROADMAP"),
+    (dict(mesh=MeshConfig(data_parallel=2, model_parallel=2)), "ROADMAP"),
     (dict(mesh=MeshConfig(data_parallel=2)), "mesh"),
     (dict(mesh=MeshConfig(model_parallel=2)), "mesh"),
     (dict(use_lr_finder=True), "LR finder"),
