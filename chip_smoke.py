@@ -79,6 +79,19 @@ Phases, each of which raises (and so exits nonzero) on failure:
               ``create_pretrained_ensemble`` (cnn + attention + the ArcFace)
               evaluated, its logits the mean of its members' within 1e-5.
               K1 and K2 must launch 0 times; one ``zoo:`` line per type;
+     tune     on the same tree: ``train_model`` with ``use_lr_finder`` at
+              the arcface_synth configuration for 2 epochs (a valid
+              suggestion <= 5e-4 that the schedule starts from), 3 f32
+              sweep steps on the card against the CPU from the same weights
+              and batches (equal LRs, losses within 1e-3 relative);
+              ``run_cross_validation`` (5 folds of 2 epochs, warm-started
+              from the ArcFace checkpoint); ``python -m
+              facerec_torch.cli.main hyperopt`` in a subprocess (arcface, 6
+              trials of 3 epochs, the LR-finder pre-pass; no FAIL row, each
+              trial's parameters equal to a replay of the study's draws on
+              the host); ``generate_visualization_report`` on the ArcFace
+              checkpoint (embeddings on the card against the CPU's) and
+              ``main(["check-gpu"])``. K1 and K2 must launch 0 times;
      demo    ``measure_demo_fps(40)`` through ``build_default_pipeline`` on
               480 x 640 synthetic camera frames (the committed detector
               weights, batch-1 packed steps): pipelined and serial fps, frame
@@ -130,6 +143,13 @@ DEMO_FRAMES = 40
 ZOO_TYPES = ("cnn", "attention", "hybrid", "siamese")
 ZOO_EPOCHS = 3
 ENSEMBLE_ATOL = 1e-5  # the average ensemble's logits against the mean of its members'
+TUNE_EPOCHS = 2  # the LR-finder run and each CV fold
+TUNE_FOLDS = 5
+TUNE_TRIALS = 6
+TUNE_TRIAL_EPOCHS = 3
+SWEEP_STEPS = 3  # sweep steps held against the CPU (1-3 s each there)
+ARCFACE_LR_CAP = 5e-4  # the LR finder's cap on its arcface suggestion
+VIZ_COS = 0.9999  # f32 embeddings on the card against the CPU's
 
 
 def _card() -> str:
@@ -911,10 +931,11 @@ def evaluate(dev, root: Path, checkpoints: Path, model_name: str, cfg, out_dir: 
     return stats
 
 
-def train(dev, card: str) -> tuple[dict, dict, dict]:
+def train(dev, card: str) -> tuple[dict, dict, dict, dict]:
     """Phase 6: the trainer at the arcface_synth configuration, then the
-    eval phase on its checkpoint, then the zoo phase beside it, in one
-    temporary directory. Returns (train stats, eval stats, zoo stats)."""
+    eval phase on its checkpoint, then the zoo and tune phases beside it,
+    in one temporary directory. Returns (train stats, eval stats, zoo
+    stats, tune stats)."""
     import tempfile
 
     import PIL
@@ -971,6 +992,8 @@ def train(dev, card: str) -> tuple[dict, dict, dict]:
                               Path(td) / "eval")
         torch.cuda.empty_cache()
         zoo_stats = zoo(dev, root, Path(td) / "checkpoints", Path(td) / "eval", card)
+        torch.cuda.empty_cache()
+        tune_stats = tune(dev, root, Path(td) / "checkpoints", Path(td), card)
     agree = train_step_agrees(dev)
     flops = train_flops_per_image(state.model, cfg.image_size) * cfg.batch_size
     tflops = flops / (timed["ms_per_step"] * 1e-3) / 1e12
@@ -994,7 +1017,7 @@ def train(dev, card: str) -> tuple[dict, dict, dict]:
         "peak_memory_gb": peak / 2**30, "launches_of_port_kernels": launches,
         "card_vs_cpu": {k: agree[k]["rel"] for k in ("loss", "grad_norm")},
     }
-    return stats, eval_stats, zoo_stats
+    return stats, eval_stats, zoo_stats, tune_stats
 
 
 def zoo_config(model_type: str):
@@ -1126,6 +1149,261 @@ def zoo(dev, root: Path, checkpoints: Path, out_dir: Path, card: str) -> dict:
     if any(launches.values()):
         raise AssertionError(f"the zoo path launched a serve kernel: {launches}")
     return {"seconds": seconds, "launches_of_port_kernels": launches, "types": list(rows)}
+
+
+def sweep_agrees(dev, batcher) -> dict:
+    """``SWEEP_STEPS`` steps of the arcface LR sweep (f32, dropout 0) on the
+    card and on the CPU from the same seeded weights on the same batches of
+    ``batcher``: the same LRs, losses within ``TRAIN_STEP_RTOL`` relative."""
+    import itertools
+
+    import torch
+
+    from facerec_torch.train.lr_finder import LearningRateFinder
+    from facerec_torch.train.state import create_train_state, set_hyperparam
+    from facerec_torch.train.steps import make_train_step
+
+    cfg = arcface_synth_config()
+    batches = list(itertools.islice(batcher.epoch(0), SWEEP_STEPS))
+    runs = []
+    for d in (dev, torch.device("cpu")):
+        state = create_train_state(_no_dropout_model("arcface"), cfg, "arcface", d)
+        finder = LearningRateFinder("arcface", num_steps=SWEEP_STEPS)
+        finder.find(state, make_train_step("arcface", "float32"),
+                    ({k: torch.from_numpy(v).to(d) for k, v in b.items()} for b in batches),
+                    lambda os, lr: set_hyperparam(os, "learning_rate", lr))
+        runs.append(finder)
+    card, cpu = runs
+    rel = [abs(a - b) / abs(b) for a, b in zip(card.losses, cpu.losses)]
+    res = {"lrs": card.lrs, "card_losses": card.losses, "cpu_losses": cpu.losses,
+           "max_rel": max(rel) if rel else None}
+    print("tune: sweep card vs cpu: " + json.dumps(res), flush=True)
+    if not (card.lrs == cpu.lrs and len(rel) == SWEEP_STEPS and max(rel) <= TRAIN_STEP_RTOL):
+        raise AssertionError(f"the LR sweep on the card disagrees with the CPU's: {res}")
+    return res
+
+
+def tune_lr_finder(dev, root: Path, checkpoints: Path) -> dict:
+    """``train_model`` with the LR-finder pre-pass at the arcface_synth
+    configuration for ``TUNE_EPOCHS`` epochs: a valid, finite suggestion at
+    most the arcface cap, and the schedule started from it. The pre-pass is
+    timed by wrapping the engine's own function."""
+    import torch
+
+    from facerec_torch.train import engine
+    from facerec_torch.train.schedulers import get_scheduler
+
+    cfg = arcface_synth_config(TUNE_EPOCHS).replace(use_lr_finder=True)
+    timed = {}
+    prepass = engine._lr_finder_prepass
+
+    def timed_prepass(*args, **kwargs):
+        t0 = time.perf_counter()
+        try:
+            return prepass(*args, **kwargs)
+        finally:
+            torch.cuda.synchronize()
+            timed["s"] = time.perf_counter() - t0
+
+    engine._lr_finder_prepass = timed_prepass
+    try:
+        t0 = time.perf_counter()
+        out = engine.train_model(cfg, root, checkpoints_root=checkpoints, model_name="arcface_lrf",
+                                 device=dev)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+    finally:
+        engine._lr_finder_prepass = prepass
+    a = json.loads((checkpoints / "arcface_lrf" / "metrics" / "lr_finder.json").read_text())
+    hist = out["history"]
+    s = a["suggested_lr"]
+    first_lr = get_scheduler(cfg.scheduler, s, cfg.epochs).step()
+    stats = {"suggested_lr": s, "max_lr": a["max_lr"], "valid": a["valid"],
+             "steps_swept": len(a["lrs"]), "sweep_s": timed["s"],
+             "ms_per_sweep_step": timed["s"] * 1e3 / max(len(a["lrs"]), 1),
+             "train_losses": [r["train_loss"] for r in hist], "lrs": [r["lr"] for r in hist],
+             "val_acc": [r["val_acc"] for r in hist], "train_model_s": train_s}
+    print("tune: lr finder " + json.dumps(stats), flush=True)
+    if not (a["valid"] and math.isfinite(s) and 0.0 < s <= ARCFACE_LR_CAP
+            and hist and hist[0]["lr"] == first_lr
+            and all(math.isfinite(r["train_loss"]) for r in hist)):
+        raise AssertionError(f"the LR finder did not give a valid suggestion the run started "
+                             f"from: {stats} (first lr expected {first_lr})")
+    return stats
+
+
+def tune_cv(dev, root: Path, checkpoints: Path) -> dict:
+    """``run_cross_validation`` at the arcface_synth configuration, warm
+    started from the train phase's checkpoint: ``TUNE_FOLDS`` folds whose
+    validation rows partition the train split, a finite mean and std."""
+    import numpy as np
+
+    from facerec_torch.data.datasets import ImageFolderIndex
+    from facerec_torch.train.cross_validation import kfold_indices, run_cross_validation
+
+    t0 = time.perf_counter()
+    res = run_cross_validation(arcface_synth_config(), root, n_splits=TUNE_FOLDS,
+                               epochs_per_fold=TUNE_EPOCHS, warm_start_model="arcface_synth_torch",
+                               checkpoints_root=checkpoints, device=dev)
+    cv_s = time.perf_counter() - t0
+    n = len(ImageFolderIndex.build(root / "train"))
+    rows = np.sort(np.concatenate([va for _, va in kfold_indices(n, TUNE_FOLDS, seed=42)]))
+    written = json.loads(next(checkpoints.glob("cv_arcface_*/cv_results.json")).read_text())
+    stats = {"folds": [{k: f[k] for k in ("fold", "val_acc", "time_sec")}
+                       for f in res["fold_results"]],
+             "mean_val_acc": written["mean_val_acc"], "std_val_acc": written["std_val_acc"],
+             "train_images": n, "cv_s": cv_s}
+    print("tune: cv " + json.dumps(stats), flush=True)
+    if not (len(res["fold_results"]) == TUNE_FOLDS and np.array_equal(rows, np.arange(n))
+            and math.isfinite(written["mean_val_acc"]) and math.isfinite(written["std_val_acc"])):
+        raise AssertionError(f"cross-validation failed: {stats}")
+    return stats
+
+
+def tune_hyperopt(dev, root: Path, work: Path) -> dict:
+    """``python -m facerec_torch.cli.main hyperopt`` as a user types it, in
+    a subprocess with ``FACEREC_ROOT`` set to ``work``, on ``dev``: exit 0,
+    every trial COMPLETE or PRUNED (no FAIL), the artifacts written, a valid
+    pre-pass, and each trial's parameters those a host replay of the study
+    draws."""
+    import os
+
+    from facerec_torch.config import TuningConfig
+    from facerec_torch.train.tuning import Study
+
+    storage = work / "study.sqlite"
+    cmd = [sys.executable, "-m", "facerec_torch.cli.main", "--device", dev.type, "hyperopt",
+           "--model-type", "arcface", "--dataset", str(root), "--trials", str(TUNE_TRIALS),
+           "--epochs", str(TUNE_TRIAL_EPOCHS), "--lr-finder", "--storage", str(storage)]
+    t0, wall0 = time.perf_counter(), time.time()
+    proc = subprocess.run(cmd, cwd=ROOT, env=dict(os.environ, FACEREC_ROOT=str(work)),
+                          capture_output=True, text=True, timeout=600)
+    sub_s = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"hyperopt exited {proc.returncode}: {proc.stderr[-4000:]}")
+    out_dir = next((work / "outputs" / "hyperopt").glob("arcface_*"))
+    summary = json.loads((out_dir / "results.json").read_text())
+    prepass = json.loads((out_dir / "lr_finder.json").read_text())
+    trials = summary["trials"]
+    tcfg = TuningConfig(model_type="arcface", study_name="arcface_study")
+    replay = Study(tcfg.study_name, None, seed=tcfg.seed)
+    center = float(prepass["suggested_lr"]) if prepass.get("valid") else None
+    drawn = [replay.suggest("arcface", i, tcfg.use_trial0_baseline, lr_center=center,
+                            lr_span=tcfg.lr_finder_span, sampler=tcfg.sampler)
+             for i in range(TUNE_TRIALS)]
+    stats = {"subprocess_s": sub_s, "split_s": hyperopt_split(proc.stderr, wall0, sub_s),
+             "prepass": {k: prepass.get(k) for k in ("valid", "suggested_lr", "max_lr")},
+             "trials": trials, "best_value": summary["best_value"],
+             "params_equal_replay": [t["params"] == d for t, d in zip(trials, drawn)],
+             "summary_written": (out_dir / "study_summary.txt").exists()}
+    for t in trials:
+        print("tune: trial " + json.dumps(t), flush=True)
+    print(f"tune: hyperopt subprocess {sub_s:.1f} s, split {json.dumps(stats['split_s'])}, "
+          f"pre-pass {json.dumps(stats['prepass'])}", flush=True)
+    if not (len(trials) == TUNE_TRIALS and all(t["state"] != "FAIL" for t in trials)
+            and prepass.get("valid") and stats["summary_written"] and storage.exists()
+            and all(stats["params_equal_replay"])):
+        raise AssertionError(f"hyperopt failed: {json.dumps(stats)}\n{proc.stderr[-4000:]}")
+    return stats
+
+
+def hyperopt_split(log: str, wall0: float, total_s: float) -> dict:
+    """Where the hyperopt command's seconds went, from the timestamps of
+    its own log lines: start-up with the LR pre-pass (up to the pre-pass's
+    line), each trial (up to its result line), and the rest."""
+    import datetime
+
+    marks = []
+    for line in log.splitlines():
+        if "LR finder suggests" in line or " COMPLETE " in line or " PRUNED " in line:
+            stamp = datetime.datetime.strptime(line[:23], "%Y-%m-%d %H:%M:%S,%f").timestamp()
+            marks.append(stamp - wall0)
+    steps = [b - a for a, b in zip([0.0] + marks, marks)]
+    return {"startup_and_prepass": steps[0] if steps else None, "trials": steps[1:],
+            "after_last_trial": total_s - marks[-1] if marks else None}
+
+
+def tune_visualize(dev, root: Path, checkpoints: Path, work: Path) -> dict:
+    """``generate_visualization_report`` on the train phase's ArcFace
+    checkpoint over the test split (224 px, as the command loads them), the
+    projection this machine takes, and 32 f32 embeddings on the card
+    against the CPU's (cosine); then ``main(["check-gpu"])``."""
+    import numpy as np
+    import torch
+
+    from facerec_torch.cli.main import main as cli_main
+    from facerec_torch.data.datasets import ImageFolderIndex
+    from facerec_torch.eval.engine import _load_model_for_eval
+    from facerec_torch.eval.visualizer import (
+        EmbeddingVisualizer,
+        generate_visualization_report,
+        projection_kind,
+    )
+
+    t0 = time.perf_counter()
+    model = _load_model_for_eval("arcface", "arcface_synth_torch", 16, checkpoints, dev)
+    res = generate_visualization_report(model, "arcface", root / "test", out_dir=work / "viz",
+                                        device=dev)
+    viz_s = time.perf_counter() - t0
+    index = ImageFolderIndex.build(root / "test")
+    embs = []
+    for d in (dev, torch.device("cpu")):
+        m = _load_model_for_eval("arcface", "arcface_synth_torch", 16, checkpoints, d)
+        embs.append(EmbeddingVisualizer(m, "arcface", 224, max_samples=32, compute_dtype="float32",
+                                        device=d).extract_embeddings(index)[0])
+    a, b = embs
+    cos = (a * b).sum(1) / (np.linalg.norm(a, axis=1) * np.linalg.norm(b, axis=1))
+    rc = cli_main(["check-gpu"])
+    stats = {"num_embeddings": res["num_embeddings"], "projection": projection_kind(),
+             "card_vs_cpu_min_cos": float(cos.min()), "visualize_s": viz_s, "check_gpu_rc": rc,
+             "files": sorted(Path(v).name for k, v in res.items()
+                             if k.startswith(("tsne", "similarity")))}
+    print("tune: visualize " + json.dumps(stats), flush=True)
+    if not (res["num_embeddings"] == len(index) and cos.min() > VIZ_COS and rc == 0
+            and len(stats["files"]) == 3):
+        raise AssertionError(f"the visualizer failed: {stats}")
+    return stats
+
+
+def tune(dev, root: Path, checkpoints: Path, work: Path, card: str) -> dict:
+    """The tune phase, on the train phase's tree beside its checkpoints:
+    the LR finder through ``train_model`` and 3 of its steps against the
+    CPU, cross-validation, the tuner through the command line, the
+    visualizer and ``check-gpu``. Neither kernel lies on this path: their
+    launches are counted over the phase and must be 0."""
+    import torch
+
+    from facerec_torch.data.datasets import ClassificationBatcher, ImageFolderIndex
+
+    _zero_launches()
+    t0 = time.perf_counter()
+    stats = {"lr_finder": tune_lr_finder(dev, root, checkpoints)}
+    cfg = arcface_synth_config()
+    batcher = ClassificationBatcher(ImageFolderIndex.build(root / "train"), cfg.batch_size,
+                                    cfg.image_size, seed=cfg.seed)
+    stats["sweep_card_vs_cpu"] = sweep_agrees(dev, batcher)
+    torch.cuda.empty_cache()
+    stats["cv"] = tune_cv(dev, root, checkpoints)
+    torch.cuda.empty_cache()
+    stats["hyperopt"] = tune_hyperopt(dev, root, work)
+    stats["visualize"] = tune_visualize(dev, root, checkpoints, work)
+    torch.cuda.synchronize()
+    stats["seconds"] = time.perf_counter() - t0
+    stats["launches_of_port_kernels"] = _launches()
+    print("tune: " + json.dumps({k: stats[k] for k in ("seconds", "launches_of_port_kernels")}
+                                | {"lr_finder": {k: stats["lr_finder"][k] for k in (
+                                       "suggested_lr", "max_lr", "steps_swept",
+                                       "ms_per_sweep_step", "sweep_s", "train_model_s")},
+                                   "sweep_max_rel": stats["sweep_card_vs_cpu"]["max_rel"],
+                                   "cv_s": stats["cv"]["cv_s"],
+                                   "cv_mean_val_acc": stats["cv"]["mean_val_acc"],
+                                   "hyperopt_s": stats["hyperopt"]["subprocess_s"],
+                                   "hyperopt_best": stats["hyperopt"]["best_value"],
+                                   "visualize": stats["visualize"], "card": card}), flush=True)
+    if any(stats["launches_of_port_kernels"].values()):
+        raise AssertionError(f"the tune path launched a serve kernel: "
+                             f"{stats['launches_of_port_kernels']}")
+    return stats
 
 
 def packed_agrees(pipe, frames) -> dict:
@@ -1295,6 +1573,7 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     from facerec_torch import build
 
+    t_script = time.perf_counter()
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False  # f32 products in full f32
     torch.backends.cudnn.allow_tf32 = False
@@ -1345,13 +1624,15 @@ def main() -> int:
         if path != "serve":
             del pipes[path]
         torch.cuda.empty_cache()
-    train_stats, eval_stats, zoo_stats = train(dev, card)
+    train_stats, eval_stats, zoo_stats, tune_stats = train(dev, card)
     launches["train"] = train_stats["launches_of_port_kernels"]
     launches["eval"] = eval_stats["launches_of_port_kernels"]
     launches["zoo"] = zoo_stats["launches_of_port_kernels"]
+    launches["tune"] = tune_stats["launches_of_port_kernels"]
     print("train: " + json.dumps(train_stats | {"card": card}), flush=True)
     print("eval: " + json.dumps(eval_stats | {"card": card}), flush=True)
     print(f"zoo: phase {zoo_stats['seconds']:.1f} s; launches {launches['zoo']}", flush=True)
+    print(f"tune: phase {tune_stats['seconds']:.1f} s; launches {launches['tune']}", flush=True)
     if any(launches["eval"].values()):
         raise AssertionError(f"the eval path launched a serve kernel: {launches['eval']}")
     torch.cuda.empty_cache()
@@ -1360,6 +1641,7 @@ def main() -> int:
     print("demo: " + json.dumps(demo_stats | {"card": card}), flush=True)
     torch.cuda.empty_cache()
     rows = kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held)
+    print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": rows, "card": card}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

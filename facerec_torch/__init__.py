@@ -24,3 +24,12 @@ def resolve_device(device: str | torch.device | None) -> torch.device:
             "facerec_torch runs on a CUDA card by default and none is present; "
             "pass device='cpu' explicitly to run the plain PyTorch versions")
     return dev
+
+
+def is_device_error(e: BaseException) -> bool:
+    """A CUDA error, after which the card's context may be unusable: the
+    flows that record a failure and go on (the tuner's trials, compare-all's
+    model types) raise it instead."""
+    accel = getattr(torch, "AcceleratorError", None)
+    return (accel is not None and isinstance(e, accel)) or (
+        isinstance(e, RuntimeError) and "CUDA error" in str(e))

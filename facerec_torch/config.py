@@ -1,6 +1,7 @@
-"""Serve, train and eval configuration and path constants (a copy of the
-parts of ``facerec_tpu/config.py`` the serve step, the demo, the trainer and
-the evaluator need, so the port never imports the JAX package)."""
+"""Serve, train, eval and tuning configuration and path constants (a copy of
+the parts of ``facerec_tpu/config.py`` the serve step, the demo, the trainer,
+the evaluator, the tuner and the command line need, so the port never
+imports the JAX package), with ``set_random_seeds`` and ``check_device``."""
 
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ DATA_DIR = PROJECT_ROOT / "data"
 PROC_DATA_DIR = DATA_DIR / "processed"
 OUTPUTS_DIR = PROJECT_ROOT / "outputs"
 CHECKPOINTS_DIR = OUTPUTS_DIR / "checkpoints"
+VIZ_DIR = OUTPUTS_DIR / "visualizations"
 FACE_REFERENCES_DIR = PROJECT_ROOT / "face_references"
 
 # Training defaults (reference src/base_config.py:32-35)
@@ -188,3 +190,63 @@ class EvalConfig(_DictMixin):
     seed: int = 42
     siamese_distance_threshold: float = 0.5  # reference training.py:588-590
     compute_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class TuningConfig(_DictMixin):
+    """The native hyperparameter search (``train/tuning.py``), every field
+    and default as the JAX package's."""
+
+    model_type: str = "baseline"
+    n_trials: int = 20
+    epochs_per_trial: int = 12
+    timeout_seconds: float | None = None
+    seed: int = 42
+    use_trial0_baseline: bool = True
+    pruning: bool = True
+    pruning_warmup_epochs: int = 3
+    storage: str | None = None  # sqlite path for resume; None = in-memory
+    study_name: str = "facerec_study"
+    train_best: bool = False
+    # LR-finder pre-pass: one range test centres the log-uniform LR window
+    use_lr_finder: bool = False
+    lr_finder_span: float = 5.0  # window = [suggested/span, suggested*span]
+    # the range test inside every trial, on the trial's own config
+    use_lr_finder_per_trial: bool = False
+    sampler: str = "tpe-lite"  # "tpe-lite" | "random"
+
+
+def set_random_seeds(seed: int = 42) -> None:
+    """Seed the host's RNGs and torch's (CPU and every card). The trainer's
+    own randomness is explicit generators seeded from its configs."""
+    import random
+
+    import numpy as np
+    import torch
+
+    random.seed(seed)
+    np.random.seed(seed)
+    torch.manual_seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+
+
+def check_device(device: str | None = None) -> dict[str, Any]:
+    """Report the accelerator: backend ``cuda``, the device count and each
+    card's name. Raises when no card is present, unless ``device`` is
+    ``"cpu"``, which reports the CPU."""
+    import torch
+
+    from facerec_torch import resolve_device
+
+    dev = resolve_device(device)
+    if dev.type == "cuda":
+        n = torch.cuda.device_count()
+        names = [torch.cuda.get_device_name(i) for i in range(n)]
+        info = {"backend": "cuda", "device_count": n, "local_device_count": n,
+                "devices": names, "torch": torch.__version__, "cuda": torch.version.cuda}
+    else:
+        info = {"backend": dev.type, "device_count": 1, "local_device_count": 1,
+                "devices": [str(dev)], "torch": torch.__version__, "cuda": None}
+    logger.info("torch backend=%s devices=%d: %s", info["backend"], info["device_count"],
+                info["devices"])
+    return info

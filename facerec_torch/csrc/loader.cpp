@@ -141,20 +141,24 @@ struct Loader {
   void worker_loop() {
     std::vector<uint8_t> raw, resized(static_cast<size_t>(image_size) * image_size * 3);
     while (!stop.load()) {
-      int my_gen = epoch_gen.load();
-      int64_t b = next_batch.fetch_add(1);
-      if (b >= num_batches) {
-        // wait for a new epoch
-        std::unique_lock<std::mutex> lk(mu);
-        cv_produce.wait_for(lk, std::chrono::milliseconds(20));
-        continue;
-      }
-      // snapshot this batch's sample indices under the lock (start_epoch
-      // reshuffles `order`; the generation check discards stale work)
+      // Claim a batch and read the epoch generation under the lock that
+      // start_epoch holds while it resets both: claimed apart, a claim
+      // straddling start_epoch took the new epoch's batch under the old
+      // generation and discarded it, and the consumer waited for it forever.
+      int my_gen;
+      int64_t b;
       std::vector<int32_t> samples;
       {
         std::unique_lock<std::mutex> lk(mu);
-        if (my_gen != epoch_gen.load()) continue;
+        my_gen = epoch_gen.load();
+        b = next_batch.fetch_add(1);
+        if (b >= num_batches) {
+          // wait for a new epoch
+          cv_produce.wait_for(lk, std::chrono::milliseconds(20));
+          continue;
+        }
+        // snapshot this batch's sample indices (start_epoch reshuffles
+        // `order`; the generation check below discards stale work)
         for (int i = 0; i < batch_size; ++i) {
           int64_t idx = b * batch_size + i;
           if (idx < static_cast<int64_t>(order.size())) samples.push_back(order[idx]);
@@ -190,10 +194,15 @@ struct Loader {
           batch.mask[i] = 1.0f;
         }
       }
+      // Admit a batch by its place behind the consumer, not by how full the
+      // queue is: with the queue full of later batches, the worker holding
+      // the batch the consumer waits for would wait too, and nothing would
+      // move. Batches in `ready` are distinct and inside the window, so the
+      // window still bounds the queue.
       std::unique_lock<std::mutex> lk(mu);
       cv_consume.wait(lk, [&] {
         return stop.load() || my_gen != epoch_gen.load() ||
-               static_cast<int>(ready.size()) < queue_depth + num_threads;
+               b < next_emit + queue_depth + num_threads;
       });
       if (stop.load()) return;
       if (my_gen != epoch_gen.load()) continue;  // stale epoch: discard

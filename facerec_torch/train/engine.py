@@ -22,8 +22,12 @@ and every path of a split is a JPEG, otherwise through
 ``ClassificationBatcher`` (PIL), so that both trainers see the same
 batches; a siamese model trains on ``SiamesePairBatcher``'s random pairs
 and is validated and tested on its fixed pairs, and its epoch log and
-history carry the same-pair and different-pair accuracies. The JAX
-engine's LR finder and its mesh are not ported yet (ROADMAP).
+history carry the same-pair and different-pair accuracies. With
+``use_lr_finder`` a range test runs first on a probe model of its own
+(initialised from ``seed + 1``, as the JAX engine's probe state is), writes
+``metrics/lr_finder.json`` and, when its analysis is valid, starts the
+schedule from the suggested rate; the model being trained is untouched by
+it. The JAX engine's mesh is not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -131,6 +135,27 @@ def _check_mesh(config: TrainConfig) -> None:
             f"model_parallel={m.model_parallel} needs the mesh path (ROADMAP section 1)")
 
 
+def _lr_finder_prepass(config: TrainConfig, num_classes: int, arc_kwargs: dict, batcher,
+                       dev: torch.device, results: ResultsManager, base_lr: float) -> float:
+    """The LR range test on a probe: a second model built and initialised
+    from ``seed + 1`` with its own optimizer, which the sweep changes and
+    then drops. Writes ``lr_finder.json``; returns the suggested rate when
+    the analysis is valid, else ``base_lr``."""
+    from facerec_torch.train.lr_finder import find_optimal_lr
+
+    probe = get_model(config.model_type, num_classes=num_classes, param_dtype=config.param_dtype,
+                      dropout_rate=config.dropout_rate, arcface_kwargs=arc_kwargs)
+    probe_state = create_train_state(probe, config.replace(seed=config.seed + 1),
+                                     config.model_type, dev)
+    analysis = find_optimal_lr(probe, config.model_type, probe_state, batcher, device=dev,
+                               compute_dtype=config.compute_dtype)
+    results.save_json("lr_finder.json", dict(analysis))
+    if analysis.get("valid"):
+        base_lr = analysis["suggested_lr"]
+        logger.info("LR finder suggests %.3e", base_lr)
+    return base_lr
+
+
 def train_model(
     config: TrainConfig,
     dataset_dirs: Sequence[str | Path] | str | Path,
@@ -148,8 +173,6 @@ def train_model(
     _check_mesh(config)
     # the margin head's cosine product is full f32 (PyTorch's default, made explicit)
     torch.backends.cuda.matmul.allow_tf32 = False
-    if config.use_lr_finder:
-        raise NotImplementedError("the LR finder is not ported to facerec_torch yet (ROADMAP)")
     batchers_per_ds = []
     num_classes = config.num_classes
     for d in dataset_dirs:
@@ -188,9 +211,14 @@ def train_model(
     if two_phase:
         set_hyperparam(opt, "backbone_scale", 0.0)
 
+    base_lr = config.optimizer.learning_rate
+    if config.use_lr_finder:
+        base_lr = _lr_finder_prepass(config, num_classes, arc_kwargs,
+                                     batchers_per_ds[0]["train"], dev, results, base_lr)
+
     train_step = make_train_step(model_type, config.compute_dtype)
     eval_step = make_eval_step(model_type, config.compute_dtype)
-    scheduler = get_scheduler(config.scheduler, config.optimizer.learning_rate, config.epochs)
+    scheduler = get_scheduler(config.scheduler, base_lr, config.epochs)
     stopper = EarlyStopping(patience=config.patience, min_delta=config.min_delta, mode="min", trace=True)
     best_val_acc = -1.0
 

@@ -6,6 +6,7 @@ JAX package's tracked library (``facerec_tpu/data/native/
 libfacerec_loader.so``) must stay untouched."""
 
 import hashlib
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -86,6 +87,30 @@ def _write_random_jpegs(root: Path, shape, per_class: int, classes: int, seed: i
             Image.fromarray(rng.integers(0, 255, shape, dtype=np.uint8)).save(
                 d / f"{i}.jpg", quality=95)
     return ImageFolderIndex.build(root)
+
+
+def test_native_loader_admits_a_slow_head_batch(tmp_path):
+    """A 2,500 x 2,500 JPEG heads an unshuffled epoch of one-image batches
+    read by 2 workers through a 3-batch window: while one worker decodes
+    it, the other fills the window with later batches, and the large one
+    must still be admitted. (The loader admitted batches by queue size, so
+    the batch the consumer waited for waited behind a full queue and the
+    epoch never ended.)"""
+    rng = np.random.default_rng(0)
+    d = tmp_path / "a"
+    d.mkdir()
+    Image.fromarray(rng.integers(0, 255, (2500, 2500, 3), dtype=np.uint8)).save(d / "000.jpg")
+    for i in range(1, 12):
+        Image.fromarray(rng.integers(0, 255, (32, 32, 3), dtype=np.uint8)).save(d / f"{i:03d}.jpg")
+    batcher = NativeClassificationBatcher(ImageFolderIndex.build(tmp_path), 1, 32, shuffle=False,
+                                          num_threads=2, queue_depth=1)
+    got = []
+    reader = threading.Thread(target=lambda: got.extend(b["mask"][0] for b in batcher.epoch(0)),
+                              daemon=True)
+    reader.start()
+    reader.join(timeout=60)
+    assert not reader.is_alive(), f"the epoch stalled after {len(got)} of 12 batches"
+    assert got == [1.0] * 12
 
 
 def test_native_loader_decodes_like_pil(tmp_path):

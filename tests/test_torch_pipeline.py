@@ -122,13 +122,29 @@ def test_port_imports_no_jax():
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "mtcnn", "embedder", "gallery", "evaluate_model",
-                                   "predict_image", "build_default_pipeline"])
+                                   "predict_image", "build_default_pipeline", "find_optimal_lr",
+                                   "run_cross_validation", "run_hyperparameter_tuning",
+                                   "generate_visualization_report", "compare_all_models",
+                                   "cli_train"])
 def test_entry_points_refuse_cpu_fallback(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the refusal is for machines without one")
-    from facerec_torch.config import EvalConfig
+    from facerec_torch.cli.compare import compare_all_models
+    from facerec_torch.cli.main import main as cli_main
+    from facerec_torch.config import EvalConfig, TrainConfig, TuningConfig
     from facerec_torch.eval.engine import evaluate_model, predict_image
+    from facerec_torch.eval.visualizer import generate_visualization_report
+    from facerec_torch.models import get_model
     from facerec_torch.serve.app import build_default_pipeline
+    from facerec_torch.train.cross_validation import run_cross_validation
+    from facerec_torch.train.lr_finder import find_optimal_lr
+    from facerec_torch.train.state import create_train_state
+    from facerec_torch.train.tuning import run_hyperparameter_tuning
+
+    def lr_finder():
+        model = get_model("baseline", num_classes=2)
+        state = create_train_state(model, TrainConfig(), "baseline", torch.device("cpu"))
+        return find_optimal_lr(model, "baseline", state, batcher=None)
 
     build = {
         "pipeline": lambda: FacePipeline(ServeConfig(**CFG), HW, None, None),
@@ -141,6 +157,17 @@ def test_entry_points_refuse_cpu_fallback(entry, tmp_path):
         "predict_image": lambda: predict_image(tmp_path / "a.jpg", EvalConfig(), ["a"],
                                                checkpoints_root=tmp_path),
         "build_default_pipeline": lambda: build_default_pipeline(HW),
+        "find_optimal_lr": lr_finder,
+        "run_cross_validation": lambda: run_cross_validation(TrainConfig(), tmp_path,
+                                                             checkpoints_root=tmp_path),
+        "run_hyperparameter_tuning": lambda: run_hyperparameter_tuning(
+            TuningConfig(n_trials=1), tmp_path, output_dir=tmp_path, objective_fn=lambda c, r: [0.5]),
+        "generate_visualization_report": lambda: generate_visualization_report(
+            get_model("baseline", num_classes=2), "baseline", tmp_path, out_dir=tmp_path),
+        "compare_all_models": lambda: compare_all_models(tmp_path, model_types=["baseline"],
+                                                         checkpoints_root=tmp_path,
+                                                         outputs_root=tmp_path),
+        "cli_train": lambda: cli_main(["train", "--dataset", str(tmp_path)]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
