@@ -92,6 +92,27 @@ Phases, each of which raises (and so exits nonzero) on failure:
               the host); ``generate_visualization_report`` on the ArcFace
               checkpoint (embeddings on the card against the CPU's) and
               ``main(["check-gpu"])``. K1 and K2 must launch 0 times;
+     prep     ``process_raw_data`` on the card at the JAX package's settings
+              (WORK_SIZE 512, batch 32, 224 px crops, margin 0.4, the
+              committed detector weights at their source's thresholds,
+              augmentation on) over a raw tree of 6 persons x 12 JPEG photos
+              of one ``face_frames`` face each (480 x 640, rng(0)):
+              ``process_batch`` images/s after a warm-up batch and its stage
+              ms (``StageTimer``), faces found (>= 65 of 72), the split and
+              augmented file counts; on 4 photos the card against the CPU:
+              the chosen faces within 1% of the box side, the crops made
+              from the same detections within 1 level on average, and the
+              end-to-end crop difference printed; ``apply_augment`` card
+              against CPU on the same draws (1e-4).
+              K1 and K2 must launch 0 times;
+     detector ``train_net`` for P-, R- and O-Net on the card at
+              tests/test_detector.py's configuration (150 scenes, 120 steps,
+              batch 256, seeds 0/1/2): mining s and ms per step (CUDA
+              events); saved with ``save_detector_params``, loaded back and
+              detecting on 16 ``render_scene(rng(77))`` scenes: >= 10 found
+              at mean IoU > 0.4 (the JAX test's bars); 3 f32 steps per net
+              on the card against the CPU (1e-4 relative). K1 and K2 must
+              launch 0 times;
      demo    ``measure_demo_fps(40)`` through ``build_default_pipeline`` on
               480 x 640 synthetic camera frames (the committed detector
               weights, batch-1 packed steps): pipelined and serial fps, frame
@@ -150,6 +171,21 @@ TUNE_TRIAL_EPOCHS = 3
 SWEEP_STEPS = 3  # sweep steps held against the CPU (1-3 s each there)
 ARCFACE_LR_CAP = 5e-4  # the LR finder's cap on its arcface suggestion
 VIZ_COS = 0.9999  # f32 embeddings on the card against the CPU's
+PREP_PERSONS = 6
+PREP_PER_PERSON = 12
+PREP_BATCH = 32  # BatchPreprocessor's default, the JAX package's
+PREP_MIN_FOUND = 65  # of 72: 90%
+AUG_ATOL = 1e-4  # apply_augment on the card against the CPU, f32 in [0, 1]
+# The chosen face's box and landmarks, card against CPU, as a share of the
+# box side: the cascade's bf16 crop weights turn last-bit f32 differences
+# into sub-pixel box moves (0.48 px, 0.3% of the side, in the first runs)
+PREP_DET_SHARE = 0.01
+DET_SCENES = 150  # tests/test_detector.py's configuration (train_detector: 2,500)
+DET_STEPS = 120  # (train_detector: 800)
+DET_BATCH = 256
+DET_AGREE_SCENES = 20
+DET_AGREE_STEPS = 3
+DET_RTOL = 1e-4  # train_net on the card against the CPU, f32
 
 
 def _card() -> str:
@@ -1406,6 +1442,280 @@ def tune(dev, root: Path, checkpoints: Path, work: Path, card: str) -> dict:
     return stats
 
 
+def _raw_tree(root: Path) -> list:
+    """``PREP_PERSONS`` x ``PREP_PER_PERSON`` JPEG photos (quality 95) of one
+    rendered face each, ``face_frames`` at 480 x 640 from rng(0), under
+    ``root/ds0/person_<p>/``; returns the decoded uint8 photos in file
+    order."""
+    import numpy as np
+    from PIL import Image
+
+    from facerec_torch.data.synthetic import face_frames
+
+    frames = face_frames(PREP_PERSONS * PREP_PER_PERSON, FRAME_HW, 1, np.random.default_rng(0))
+    photos = []
+    for i, f in enumerate(frames.astype(np.uint8)):
+        d = root / "ds0" / f"person_{i // PREP_PER_PERSON:02d}"
+        d.mkdir(parents=True, exist_ok=True)
+        Image.fromarray(f).save(d / f"img_{i % PREP_PER_PERSON:03d}.jpg", quality=95)
+        with Image.open(d / f"img_{i % PREP_PER_PERSON:03d}.jpg") as im:
+            photos.append(np.asarray(im.convert("RGB"), np.uint8))
+    return photos
+
+
+def prep_breakdown(pre, photos) -> dict:
+    """ms of each stage of ``process_batch`` over ``photos``
+    (``utils.profiling.StageTimer``, each stage synchronised on its
+    result): the host letterbox, the upload, detect, align and crop, the
+    read-back."""
+    import torch
+
+    from facerec_torch.utils.profiling import StageTimer
+
+    timer = StageTimer()
+    with timer.stage("letterbox"):
+        batch = pre.frames(photos)
+    for s in range(0, len(batch), pre.batch_size):
+        with timer.stage("upload") as box:
+            box["result"] = chunk = torch.from_numpy(batch[s:s + pre.batch_size]).to(pre.device)
+        with timer.stage("detect") as box:
+            box["result"] = det = pre.detector.detect(chunk)
+        with timer.stage("align") as box:
+            box["result"] = crops = pre.crops(chunk, det)
+        with timer.stage("readback"):
+            crops.cpu().numpy()
+    return {k: v["total_sec"] * 1e3 for k, v in timer.summary().items()}
+
+
+def prep_agrees(pre, photos) -> dict:
+    """The card's ``process_batch`` against the CPU's on ``photos`` (4):
+    end to end (uint8 levels), the chosen face's box and landmarks (px,
+    and as a share of the box side), and the crops the card makes from the
+    CPU's detections against the CPU's crops."""
+    import numpy as np
+    import torch
+
+    from facerec_torch.data.preprocess import BatchPreprocessor
+    from facerec_torch.detect.mtcnn import Detections
+    from facerec_torch.detect.weights import load_default_detector
+
+    cfg = pre.config
+    cpu = BatchPreprocessor(cfg, load_default_detector(
+        pre.detector.image_hw, cfg.min_face_size, cfg.detection_thresholds, device="cpu"),
+        batch_size=len(photos), device="cpu")
+    x = torch.from_numpy(cpu.frames(photos))
+    with torch.no_grad():
+        d_cpu = cpu.detector.detect(x)
+        d_card = pre.detector.detect(x.to(pre.device))
+    ends = [np.stack(b.process_batch(photos)).astype(np.int32) for b in (pre, cpu)]
+    same = [pre.crops(x.to(pre.device), Detections(*(t.to(pre.device) for t in d_cpu))).cpu(),
+            cpu.crops(x, d_cpu)]
+    same = [np.clip(c.numpy(), 0, 255).astype(np.uint8).astype(np.int32) for c in same]
+
+    def best(d):
+        i = torch.argmax(torch.where(d.valid, d.probs, -1.0), dim=1).cpu()
+        rows = torch.arange(len(i))
+        return d.boxes.cpu()[rows, i], d.landmarks.cpu()[rows, i], d.valid.cpu()[rows, i]
+
+    (bc, lc, vc), (bg, lg, vg) = best(d_cpu), best(d_card)
+    side = torch.maximum(bc[:, 2] - bc[:, 0], bc[:, 3] - bc[:, 1])
+    off = torch.maximum((bg - bc).abs().amax(dim=1), (lg - lc).abs().amax(dim=(1, 2)))
+    e2e, sd = np.abs(ends[0] - ends[1]), np.abs(same[0] - same[1])
+    return {"end_to_end_levels": {"mean": float(e2e.mean()), "max": int(e2e.max())},
+            "same_detections_levels": {"mean": float(sd.mean()), "max": int(sd.max())},
+            "detections_valid_equal": bool(torch.equal(vc, vg)),
+            "box_landmark_max_px": float(off.max()),
+            "box_landmark_max_share_of_side": float((off / side).max())}
+
+
+def prep(dev, card: str) -> dict:
+    """The prep phase: ``process_raw_data`` on the card at the JAX package's
+    settings (WORK_SIZE 512, batch 32, 224 px crops, margin 0.4, the
+    committed detector weights at their source's thresholds, augmentation
+    on) over a raw tree of 6 persons x 12 photos; ``process_batch``'s
+    images/s after one warm-up batch and its stages; faces found; the
+    card against the CPU on 4 photos; ``apply_augment`` on the card
+    against the CPU on the same draws. Neither kernel lies on this path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from facerec_torch.config import PreprocessingConfig
+    from facerec_torch.data import preprocess as pp
+    from facerec_torch.detect.weights import load_default_detector
+    from facerec_torch.ops.augment import AugmentParams, apply_augment, draw_augment
+
+    cfg = PreprocessingConfig()
+    n = PREP_PERSONS * PREP_PER_PERSON
+    with tempfile.TemporaryDirectory(prefix="facerec_prep_") as td:
+        t0 = time.perf_counter()
+        photos = _raw_tree(Path(td) / "raw")
+        render_s = time.perf_counter() - t0
+        det = load_default_detector((pp.WORK_SIZE, pp.WORK_SIZE), cfg.min_face_size,
+                                    cfg.detection_thresholds, device=dev)
+        pre = pp.BatchPreprocessor(cfg, det, batch_size=PREP_BATCH, device=dev)
+        _zero_launches()
+        t_all = time.perf_counter()
+        pre.process_batch(photos[:PREP_BATCH])  # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        crops = pre.process_batch(photos)
+        batch_s = time.perf_counter() - t0
+        stages = prep_breakdown(pre, photos)
+        # faces found: the detector's own verdict on the letterboxed frames
+        found = 0
+        frames = pre.frames(photos)
+        for s in range(0, n, PREP_BATCH):
+            chunk = torch.from_numpy(frames[s:min(s + PREP_BATCH, n)]).to(dev)
+            found += int(det.detect(chunk).valid.any(dim=1).sum())
+        t0 = time.perf_counter()
+        out = pp.process_raw_data(Path(td) / "raw", Path(td) / "out", cfg, detector=det,
+                                  device=dev)
+        torch.cuda.synchronize()
+        raw_s = time.perf_counter() - t0
+        phase_s = time.perf_counter() - t_all
+        launches = _launches()
+        files = {split: sorted(q.name for q in (out / "ds0" / split).rglob("*.jpg"))
+                 for split in ("train", "val", "test")}
+        aug = sum("_aug" in f for f in files["train"])
+        stats_json = json.loads((out / "preprocess_stats.json").read_text())
+    agree = prep_agrees(pre, photos[:4])
+    # apply_augment on the card against the CPU on the same draws
+    imgs = torch.from_numpy(np.stack(crops[:8]).astype(np.float32) / 255.0)
+    strong = AugmentParams(p_geometry=1.0, p_color=1.0)
+    draws = draw_augment(torch.Generator().manual_seed(0), 8, strong)
+    aug_err = float((apply_augment(imgs.to(dev), draws, strong).cpu()
+                     - apply_augment(imgs, draws, strong)).abs().max())
+    n_train = max(int(0.7 * PREP_PER_PERSON), 1)
+    n_val = max(int(0.15 * PREP_PER_PERSON), 1)
+    n_aug = PREP_PERSONS * cfg.low_data_variants * min(n_train, 10)
+    expect = {"train": PREP_PERSONS * n_train + n_aug, "val": PREP_PERSONS * n_val,
+              "test": PREP_PERSONS * (PREP_PER_PERSON - n_train - n_val)}
+    stats = {"route": "BatchPreprocessor.process_batch + process_raw_data",
+             "work_size": pp.WORK_SIZE, "batch": PREP_BATCH, "final_size": cfg.final_size[0],
+             "photos": n, "render_s": render_s,
+             "process_batch_images_per_s": n / batch_s, "process_batch_s": batch_s,
+             "process_batch_stages_ms": stages,
+             "found": found, "fallbacks": n - found, "process_raw_data_s": raw_s,
+             "phase_s": phase_s,
+             "files": {k: len(v) for k, v in files.items()}, "augmented": aug,
+             "persons": len(stats_json["datasets"]["ds0"]),
+             "card_vs_cpu": agree, "augment_card_vs_cpu_max_abs": aug_err,
+             "launches_of_port_kernels": launches}
+    print("prep: " + json.dumps(stats | {"card": card}), flush=True)
+    if not (found >= PREP_MIN_FOUND and stats["files"] == expect and aug == n_aug):
+        raise AssertionError(f"the prep phase failed: {stats} (expected files {expect}, "
+                             f">= {PREP_MIN_FOUND} faces)")
+    if not (agree["detections_valid_equal"] and agree["same_detections_levels"]["mean"] <= 1.0
+            and agree["box_landmark_max_share_of_side"] <= PREP_DET_SHARE
+            and aug_err <= AUG_ATOL):
+        raise AssertionError(f"the prep path on the card disagrees with the CPU: {agree}, "
+                             f"augment {aug_err}")
+    if any(launches.values()):
+        raise AssertionError(f"the prep path launched a serve kernel: {launches}")
+    return stats
+
+
+def _net_agrees(dev, net_cls, size: int, seed: int, lm: bool) -> dict:
+    """``DET_AGREE_STEPS`` f32 ``train_net`` steps on the card against the
+    CPU, from the same seeded initial weights, samples and indices: the
+    per-step losses, and the parameters as one vector (the 2-norm of the
+    difference over the 2-norm of the CPU's), within ``DET_RTOL``; the
+    worst single tensor is reported beside it."""
+    import numpy as np
+
+    from facerec_torch.detect.train import train_net
+    from facerec_torch.detect.weights import flatten_tree
+
+    got, ref = {}, {}
+    a = flatten_tree(train_net(net_cls(), size, DET_AGREE_SCENES, DET_AGREE_STEPS, seed=seed,
+                               with_landmarks=lm, device=dev, stats=got))
+    b = flatten_tree(train_net(net_cls(), size, DET_AGREE_SCENES, DET_AGREE_STEPS, seed=seed,
+                               with_landmarks=lm, device="cpu", stats=ref))
+    va = np.concatenate([a[k].ravel() for k in sorted(b)])
+    vb = np.concatenate([b[k].ravel() for k in sorted(b)])
+    worst = max(b, key=lambda k: np.linalg.norm(a[k] - b[k]) / np.linalg.norm(b[k]))
+    return {"loss_max_rel": max(abs(x - y) / abs(y) for x, y in zip(got["losses"], ref["losses"])),
+            "param_rel": float(np.linalg.norm(va - vb) / np.linalg.norm(vb)),
+            "worst_tensor": worst,
+            "worst_tensor_rel": float(np.linalg.norm(a[worst] - b[worst])
+                                      / np.linalg.norm(b[worst]))}
+
+
+def detector(dev, card: str) -> dict:
+    """The detector phase: ``train_net`` for P-, R- and O-Net on the card at
+    tests/test_detector.py's configuration (150 scenes, 120 steps, batch
+    256, seeds 0/1/2), saved with ``save_detector_params``, loaded back,
+    and detecting on 16 ``render_scene(rng(77))`` scenes against the JAX
+    test's bars; then 3 f32 steps per net on the card against the CPU.
+    Neither kernel lies on this path."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from facerec_torch.data.synthetic import render_scene
+    from facerec_torch.detect.mtcnn import MTCNN, ONet, PNet, RNet
+    from facerec_torch.detect.train import _iou, train_net
+    from facerec_torch.detect.weights import (
+        load_detector_params_with_source, save_detector_params,
+    )
+
+    nets = (("pnet", PNet, 12, 0, False), ("rnet", RNet, 24, 1, False),
+            ("onet", ONet, 48, 2, True))
+    _zero_launches()
+    t_all = time.perf_counter()
+    params, per_net = {}, {}
+    for name, cls, size, seed, lm in nets:
+        st = {}
+        params[name] = train_net(cls(), size, DET_SCENES, DET_STEPS, batch_size=DET_BATCH,
+                                 seed=seed, with_landmarks=lm, device=dev, stats=st)
+        per_net[name] = {"mining_s": st["mining_s"], "samples": st["samples"],
+                         "step_ms": st["step_ms"], "loss_first_last": [st["losses"][0],
+                                                                       st["losses"][-1]]}
+    with tempfile.TemporaryDirectory(prefix="facerec_det_") as td:
+        d = save_detector_params(params, Path(td) / "detector")
+        loaded, source = load_detector_params_with_source(d)
+    det = MTCNN((96, 96), min_face_size=24, thresholds=(0.6, 0.7, 0.7), max_faces=4, k_pnet=32,
+                k_rnet=16, device=dev).load_jax_params(loaded)
+    rng = np.random.default_rng(77)
+    scenes, boxes = [], []
+    for _ in range(16):
+        img, box, _ = render_scene(rng, canvas=96, face_size_range=(32, 72))
+        scenes.append(img)
+        boxes.append(box)
+    out = det.detect(torch.from_numpy(np.stack(scenes)).to(dev).float())
+    found, ious = 0, []
+    for i in range(16):
+        v = out.valid[i].cpu().numpy()
+        if not v.any():
+            continue
+        found += 1
+        bi = int(np.argmax(out.probs[i].cpu().numpy() * v))
+        ious.append(float(_iou(out.boxes[i, bi].cpu().numpy(), boxes[i])))
+    torch.cuda.synchronize()
+    phase_s = time.perf_counter() - t_all
+    launches = _launches()
+    agree = {name: _net_agrees(dev, cls, size, seed, lm) for name, cls, size, seed, lm in nets}
+    stats = {"route": "train_net x 3 + save_detector_params + MTCNN.detect",
+             "scenes": DET_SCENES, "steps": DET_STEPS, "batch": DET_BATCH, "nets": per_net,
+             "source": source, "found": found, "mean_iou": float(np.mean(ious)) if ious else 0.0,
+             "ious": ious, "phase_s": phase_s, "card_vs_cpu": agree,
+             "launches_of_port_kernels": launches}
+    print("detector: " + json.dumps(stats | {"card": card}), flush=True)
+    if not (found >= 10 and stats["mean_iou"] > 0.4 and source == "self-trained"):
+        raise AssertionError(f"the detector trained on the card found {found}/16 at mean IoU "
+                             f"{stats['mean_iou']:.3f} (bars >= 10 and > 0.4)")
+    bad = {k: v for k, v in agree.items()
+           if max(v["loss_max_rel"], v["param_rel"]) > DET_RTOL}
+    if bad:
+        raise AssertionError(f"train_net on the card disagrees with the CPU: {bad}")
+    if any(launches.values()):
+        raise AssertionError(f"the detector path launched a serve kernel: {launches}")
+    return stats
+
+
 def packed_agrees(pipe, frames) -> dict:
     """``process_demo`` + ``faces_from_packed`` against ``identify`` on the
     same frames, with tests/test_subsystems.py's bars; the per-slot
@@ -1635,6 +1945,13 @@ def main() -> int:
     print(f"tune: phase {tune_stats['seconds']:.1f} s; launches {launches['tune']}", flush=True)
     if any(launches["eval"].values()):
         raise AssertionError(f"the eval path launched a serve kernel: {launches['eval']}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    launches["prep"] = prep(dev, card)["launches_of_port_kernels"]
+    torch.cuda.empty_cache()
+    launches["detector"] = detector(dev, card)["launches_of_port_kernels"]
+    print(f"prep + detector: {time.perf_counter() - t0:.1f} s; launches prep {launches['prep']}, "
+          f"detector {launches['detector']}", flush=True)
     torch.cuda.empty_cache()
     launches["demo"], demo_stats = demo(dev, pipes.pop("serve"), frames)
     held["demo"] = demo_stats["kernels_held"]

@@ -6,10 +6,10 @@ The JAX package's subcommands, flags and defaults, plus one top-level
 
     python -m facerec_torch.cli.main [--device cuda|cpu] <command> [flags]
 
+``interactive`` (also the default with no command), ``preprocess``,
 ``train`` (with ``--lr-finder``), ``evaluate``, ``predict``, ``cv``,
 ``hyperopt``, ``visualize``, ``compare-all``, ``list-models``,
-``check-gpu`` and ``demo`` (headless) run. ``interactive`` (also the
-default with no command), ``preprocess``, ``download`` and ``bench`` keep
+``check-gpu`` and ``demo`` (headless) run. ``download`` and ``bench`` keep
 their flags but exit 2 with a line that names what they wait for.
 Checkpoints and outputs go under ``$FACEREC_ROOT/outputs`` (default: the
 repository).
@@ -24,9 +24,6 @@ from pathlib import Path
 
 # command -> why it does not run in the port yet
 NOT_PORTED = {
-    "interactive": "the interactive menu waits for data/preprocess.py, which is not ported",
-    "preprocess": "preprocessing waits for data/preprocess.py and ops/augment.py, "
-                  "which are not ported",
     "download": "the downloader needs the network (kagglehub) and is not ported",
     "bench": "bench is the JAX package's bench.py; the port runs end to end in chip_smoke.py "
              "until a BENCHMARK.json exists",
@@ -170,6 +167,22 @@ def main(argv: list[str] | None = None) -> int:
         print(f"facerec_torch: '{cmd}' is not ported: {NOT_PORTED[cmd]} (ROADMAP.md section 1)",
               file=sys.stderr)
         return 2
+
+    if cmd == "interactive":
+        from facerec_torch.cli.interactive import interactive_menu
+
+        return interactive_menu(dev)
+
+    if cmd == "preprocess":
+        from facerec_torch.config import PreprocessingConfig
+        from facerec_torch.data.preprocess import process_raw_data
+
+        cfg = PreprocessingConfig(name=args.config_name, use_mtcnn=not args.no_mtcnn)
+        out = process_raw_data(args.raw_dir, args.out_dir, cfg,
+                               max_samples_per_class=args.max_samples, test_mode=args.test,
+                               device=dev)
+        print(out)
+        return 0
 
     if cmd == "check-gpu":
         from facerec_torch.config import check_device

@@ -1,11 +1,13 @@
-"""Serve, train, eval and tuning configuration and path constants (a copy of
-the parts of ``facerec_tpu/config.py`` the serve step, the demo, the trainer,
-the evaluator, the tuner and the command line need, so the port never
-imports the JAX package), with ``set_random_seeds`` and ``check_device``."""
+"""Serve, train, eval, tuning and preprocessing configuration and path
+constants (a copy of the parts of ``facerec_tpu/config.py`` the serve step,
+the demo, the trainer, the evaluator, the tuner, the preprocessor and the
+command line need, so the port never imports the JAX package), with
+``set_random_seeds`` and ``check_device``."""
 
 from __future__ import annotations
 
 import dataclasses
+import json
 import logging
 import os
 import typing
@@ -15,6 +17,7 @@ from typing import Any
 
 PROJECT_ROOT = Path(os.environ.get("FACEREC_ROOT", Path(__file__).resolve().parent.parent))
 DATA_DIR = PROJECT_ROOT / "data"
+RAW_DATA_DIR = DATA_DIR / "raw"
 PROC_DATA_DIR = DATA_DIR / "processed"
 OUTPUTS_DIR = PROJECT_ROOT / "outputs"
 CHECKPOINTS_DIR = OUTPUTS_DIR / "checkpoints"
@@ -43,7 +46,7 @@ CLASSIC_DETECTION_THRESHOLDS: tuple[float, float, float] = (0.6, 0.7, 0.7)
 class _DictMixin:
     """``to_dict`` / ``from_dict`` over nested dataclasses, as the JAX
     package's configs round-trip (``model_info.json`` stores ``to_dict``),
-    and ``replace``."""
+    ``save_json`` / ``load_json`` and ``replace``."""
 
     def to_dict(self) -> dict[str, Any]:
         out = {}
@@ -74,6 +77,14 @@ class _DictMixin:
             kwargs[f.name] = v
         return cls(**kwargs)
 
+    def save_json(self, path: str | Path) -> None:
+        Path(path).parent.mkdir(parents=True, exist_ok=True)
+        Path(path).write_text(json.dumps(self.to_dict(), indent=2))
+
+    @classmethod
+    def load_json(cls, path: str | Path):
+        return cls.from_dict(json.loads(Path(path).read_text()))
+
     def replace(self, **kwargs):
         return dataclasses.replace(self, **kwargs)
 
@@ -91,6 +102,32 @@ class ServeConfig:
     top_k: int = 5
     max_faces: int = 16  # static per-frame face capacity
     gallery_dtype: str = "bfloat16"
+
+
+@dataclass(frozen=True)
+class PreprocessingConfig(_DictMixin):
+    """Detect -> align -> crop -> augment settings (reference
+    data_prep.py:20-67), every field and default as the JAX package's."""
+
+    name: str = "default"
+    use_mtcnn: bool = True
+    face_margin: float = 0.4
+    final_size: tuple[int, int] = (IMG_SIZE, IMG_SIZE)
+    min_face_size: int = 20
+    # None: the thresholds of the weights' source (detect/weights.py
+    # thresholds_for_source); a tuple overrides them whatever the source
+    detection_thresholds: tuple[float, float, float] | None = None
+    # augmentation (reference data_prep.py:38-48)
+    augment: bool = True
+    rotation_degrees: float = 20.0
+    brightness: float = 0.2
+    contrast: float = 0.2
+    scale: float = 0.1
+    horizontal_flip: bool = True
+    # low-data augmentation: variants when a class has fewer train images
+    # than the threshold (reference data_prep.py:353-396)
+    low_data_threshold: int = 20
+    low_data_variants: int = 5
 
 
 @dataclass(frozen=True)

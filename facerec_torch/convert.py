@@ -14,7 +14,9 @@ in], LayerNorm ``scale`` -> ``weight``; the attention's [D, H, D/H] and
 ``gamma`` carry over as they are. No row permutation is needed before the
 R-Net/O-Net/siamese dense layers because the port flattens their feature
 maps in NHWC order, as the JAX nets do. A gradient tree has the
-parameters' shape, so it carries over the same way.
+parameters' shape, so it carries over the same way. ``to_jax(state_dict,
+which)`` is the inverse for the three MTCNN nets: the Flax-layout tree of
+numpy arrays that the JAX package's ``.npz`` files hold.
 """
 
 from __future__ import annotations
@@ -167,4 +169,23 @@ def from_jax(tree: Mapping[str, Any], which: str,
             _dense(params[d], out, d)
     else:
         _model(params, stats, out, which, member_types=member_types)
+    return out
+
+
+def to_jax(state_dict: Mapping[str, torch.Tensor], which: str) -> dict[str, dict[str, np.ndarray]]:
+    """State dict of the port's ``which`` MTCNN net (pnet, rnet or onet) ->
+    its Flax parameter tree of f32 numpy arrays (conv kernels OIHW -> HWIO,
+    dense [out, in] -> [in, out], PReLU ``weight`` -> ``alpha``)."""
+    if which not in _MTCNN:
+        raise ValueError(f"no inverse converter for {which!r}")
+    sd = {k: v.detach().float().cpu().numpy() for k, v in state_dict.items()}
+    convs, n_prelu, denses = _MTCNN[which]
+    out: dict[str, dict[str, np.ndarray]] = {}
+    for c in convs:
+        out[c] = {"kernel": np.ascontiguousarray(np.transpose(sd[f"{c}.weight"], (2, 3, 1, 0))),
+                  "bias": sd[f"{c}.bias"]}
+    for i in range(1, n_prelu + 1):
+        out[f"prelu{i}"] = {"alpha": sd[f"prelu{i}.weight"]}
+    for d in denses:
+        out[d] = {"kernel": np.ascontiguousarray(sd[f"{d}.weight"].T), "bias": sd[f"{d}.bias"]}
     return out

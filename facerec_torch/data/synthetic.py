@@ -1,12 +1,15 @@
 """Synthetic faces (copied from ``facerec_tpu/data/synthetic.py``, numpy
 and PIL only): the serve step's frames (``_identity_params``,
 ``render_face_photo`` and their helpers, plus ``face_frames``, the frame
-renderer ``bench.py`` uses) and the trainer's identity datasets
-(``render_face``, ``make_synthetic_arrays``, ``write_synthetic_imagefolder``).
+renderer ``bench.py`` uses), the trainer's identity datasets
+(``render_face``, ``make_synthetic_arrays``, ``write_synthetic_imagefolder``)
+and the detector trainer's scenes with their ground truth (``render_scene``,
+``face_bbox``, ``face_landmarks``, ``_photometric``, ``_photo_background``).
 One change: the photo renderer draws the hair style with crc32 instead of
 ``hash()``, so the same seed renders the same frames in every process.
 ``render_face`` draws nothing from a hash, so its images equal the JAX
-package's for a seed as they are."""
+package's for a seed as they are; ``render_scene`` equals JAX's once JAX's
+``hash`` is given the same crc32 draw."""
 
 from __future__ import annotations
 
@@ -333,3 +336,162 @@ def write_synthetic_imagefolder(
                 Image.fromarray(render_face(p, size, jr)).save(d / f"{person}_{i:04d}.jpg", quality=92)
                 i += 1
     return root
+
+
+def face_landmarks(params: dict, size: int, shift=(0.0, 0.0), rot_deg: float = 0.0) -> np.ndarray:
+    """5-point landmarks (x, y) in pixel coords for a rendered face:
+    left eye, right eye, nose (eye-mouth midpoint), mouth-left, mouth-right.
+    ``rot_deg`` matches the in-plane rotation given to the photo renderer."""
+    sx, sy = shift
+    c, s = np.cos(np.deg2rad(rot_deg)), np.sin(np.deg2rad(rot_deg))
+
+    def pt(u, v):
+        ur, vr = c * u - s * v, s * u + c * v
+        return [(ur + 0.5 + sx) * size, (vr + 0.5 + sy) * size]
+
+    le = pt(-params["eye_dx"], params["eye_y"])
+    re = pt(params["eye_dx"], params["eye_y"])
+    ml = pt(-params["mouth_w"], params["mouth_y"])
+    mr = pt(params["mouth_w"], params["mouth_y"])
+    nose = [(le[0] + re[0] + ml[0] + mr[0]) / 4, (le[1] + re[1] + ml[1] + mr[1]) / 4]
+    return np.asarray([le, re, nose, ml, mr], np.float32)
+
+
+def face_bbox(params: dict, size: int, shift=(0.0, 0.0), rot_deg: float = 0.0) -> np.ndarray:
+    """Tight face box (x1, y1, x2, y2) in pixel coords (hair top to chin).
+    Under rotation, the box of the rotated corner points (standard convention)."""
+    sx, sy = shift
+    ax, ay = params["face_ax"], params["face_ay"]
+    top = min(params["hair_top"], -ay)
+    if rot_deg:
+        c, s = np.cos(np.deg2rad(rot_deg)), np.sin(np.deg2rad(rot_deg))
+        corners = np.asarray([[-ax, top], [ax, top], [-ax, ay], [ax, ay]], np.float32)
+        rot = corners @ np.asarray([[c, s], [-s, c]], np.float32)
+        x1, y1 = rot.min(axis=0)
+        x2, y2 = rot.max(axis=0)
+    else:
+        x1, x2, y1, y2 = -ax, ax, top, ay
+    return np.asarray([
+        (0.5 + sx + x1) * size, (0.5 + sy + y1) * size,
+        (0.5 + sx + x2) * size, (0.5 + sy + y2) * size,
+    ], np.float32)
+
+
+def _photometric(img01: np.ndarray, rng: np.random.Generator) -> np.ndarray:
+    """Global photo-style randomization: white balance, gamma, contrast."""
+    img = img01 * rng.uniform(0.82, 1.18, 3).astype(np.float32)
+    img = np.clip(img, 0.0, 1.0) ** rng.uniform(0.65, 1.45)
+    m = img.mean()
+    img = (img - m) * rng.uniform(0.75, 1.25) + m
+    return np.clip(img, 0.0, 1.0).astype(np.float32)
+
+
+def _photo_background(rng: np.random.Generator, canvas: int) -> np.ndarray:
+    """float [0,1] background: smooth gradient / blurred blobs / clutter."""
+    kind = int(rng.integers(0, 4))
+    ys, xs = np.mgrid[0:canvas, 0:canvas].astype(np.float32) / canvas
+    if kind == 3:  # plain indoor wall/ceiling: near-monochrome low-sat gradient
+        base = rng.uniform(0.15, 0.85)
+        c0 = np.clip(base + rng.uniform(-0.06, 0.06, 3), 0, 1).astype(np.float32)
+        c1 = np.clip(base + rng.uniform(-0.18, 0.18) + rng.uniform(-0.05, 0.05, 3), 0, 1).astype(np.float32)
+    else:
+        c0 = rng.uniform(0.05, 0.95, 3).astype(np.float32)
+        c1 = rng.uniform(0.05, 0.95, 3).astype(np.float32)
+        # desaturate toward luminance by a random amount — real webcam
+        # backgrounds are rarely saturated
+        d = rng.uniform(0.0, 0.8)
+        c0 = c0 * (1 - d) + c0.mean() * d
+        c1 = c1 * (1 - d) + c1.mean() * d
+    ang = rng.uniform(0, 2 * np.pi)
+    t = np.clip(xs * np.cos(ang) + ys * np.sin(ang), 0, 1)[..., None]
+    bg = c0 * (1 - t) + c1 * t
+    if kind >= 1:  # blurred blobs over the gradient
+        blob = rng.uniform(0, 1, (canvas // 16 + 1, canvas // 16 + 1, 3))
+        blob = np.kron(blob, np.ones((16, 16, 1)))[:canvas, :canvas]
+        from PIL import Image, ImageFilter
+
+        pil = Image.fromarray((np.clip(blob, 0, 1) * 255).astype(np.uint8))
+        blob = np.asarray(pil.filter(ImageFilter.GaussianBlur(canvas / 24)), np.float32) / 255
+        bg = 0.5 * bg + 0.5 * blob
+    if kind == 2:  # hard clutter rectangles (furniture/edges)
+        for _ in range(int(rng.integers(1, 5))):
+            x, y = rng.integers(0, canvas, 2)
+            w, h = rng.integers(canvas // 12, canvas // 3, 2)
+            bg[y : y + h, x : x + w] = rng.uniform(0, 0.9, 3)
+    return np.clip(bg, 0, 1).astype(np.float32)
+
+
+def render_scene(
+    rng: np.random.Generator,
+    canvas: int = 128,
+    face_size_range: tuple[int, int] = (32, 96),
+    params: dict | None = None,
+    style: str = "mix",
+) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """A detection-training scene: one synthetic face on a varied background.
+    Returns (uint8 image [canvas,canvas,3], box [4], lmk [5,2]).
+
+    ``style``: 'photo' (shaded/soft/rotated face, alpha-blended, scene-level
+    photometric randomization + blur — the domain that transfers to real
+    photographs), 'flat' (the legacy hard-paste cartoon), or 'mix' (75/25)."""
+    p = params or _identity_params(rng)
+    fsize = int(rng.integers(face_size_range[0], face_size_range[1] + 1))
+    if style == "mix":
+        style = "photo" if rng.uniform() < 0.75 else "flat"
+
+    if style == "flat":
+        fsize = min(fsize, canvas)  # hard-paste cannot overflow the canvas
+        face = render_face(p, fsize, None)
+        light = rng.uniform(0.8, 1.2)
+        face = np.clip(face.astype(np.float32) * light + rng.normal(0, 4, face.shape), 0, 255).astype(np.uint8)
+        bg = rng.uniform(0, 0.6, (canvas // 8, canvas // 8, 3))
+        bg = np.kron(bg, np.ones((8, 8, 1)))[:canvas, :canvas]
+        for _ in range(rng.integers(0, 6)):
+            x, y = rng.integers(0, canvas, 2)
+            w, h = rng.integers(4, canvas // 3, 2)
+            bg[y : y + h, x : x + w] = rng.uniform(0, 0.8, 3)
+        img = (np.clip(bg, 0, 1) * 255).astype(np.uint8)
+        ox = int(rng.integers(0, canvas - fsize + 1))
+        oy = int(rng.integers(0, canvas - fsize + 1))
+        img[oy : oy + fsize, ox : ox + fsize] = face
+        off = np.asarray([ox, oy], np.float32)
+        box = face_bbox(p, fsize) + np.concatenate([off, off])
+        lmk = face_landmarks(p, fsize) + off
+        return img, box, lmk
+
+    rot = float(rng.uniform(-18.0, 18.0))
+    face, alpha = render_face_photo(p, fsize, jitter_rng=rng, rot_deg=rot)
+    bg = _photo_background(rng, canvas)
+    # allow edge-cut placement (close-up portraits crop the face at the frame
+    # boundary; the reference's gallery JPEGs are exactly such tight crops) —
+    # including faces LARGER than the canvas (fsize may exceed it)
+    # faces at/above canvas size may be cut up to 35% per side (the reference
+    # gallery crops at mid-forehead AND mid-chin); smaller faces up to 20%
+    cut = int((0.35 if fsize >= canvas else 0.2) * fsize)
+    lo = -cut
+    hi = max(canvas - fsize + cut, lo) + 1
+    ox = int(rng.integers(lo, hi))
+    oy = int(rng.integers(lo, hi))
+    sy0, sx0 = max(-oy, 0), max(-ox, 0)
+    sy1 = min(canvas - oy, fsize)
+    sx1 = min(canvas - ox, fsize)
+    region = bg[oy + sy0 : oy + sy1, ox + sx0 : ox + sx1]
+    a = alpha[sy0:sy1, sx0:sx1, None]
+    bg[oy + sy0 : oy + sy1, ox + sx0 : ox + sx1] = (
+        a * face[sy0:sy1, sx0:sx1] + (1 - a) * region
+    )
+    img = _photometric(bg, rng)
+    # scene-level blur + sensor noise (real photos at detector resolution are
+    # smooth; the heavy upsample of small reference JPEGs doubly so)
+    from PIL import Image, ImageFilter
+
+    sigma = float(rng.uniform(0.0, 1.4))
+    if sigma > 0.05:
+        pil = Image.fromarray((img * 255).astype(np.uint8))
+        img = np.asarray(pil.filter(ImageFilter.GaussianBlur(sigma)), np.float32) / 255
+    img = np.clip(img + rng.normal(0, rng.uniform(0.0, 0.03), img.shape), 0, 1)
+    img = (img * 255).astype(np.uint8)
+    off = np.asarray([ox, oy], np.float32)
+    box = face_bbox(p, fsize, rot_deg=rot) + np.concatenate([off, off])
+    lmk = face_landmarks(p, fsize, rot_deg=rot) + off
+    return img, box, lmk

@@ -112,6 +112,23 @@ class ONet(nn.Module):
         return probs, self.dense6_2(x), self.dense6_3(x)
 
 
+def init_like_flax(net: nn.Module, generator: torch.Generator) -> nn.Module:
+    """Draw a P-, R- or O-Net's parameters as Flax initialises the JAX nets:
+    convolution and dense kernels LeCun-normal (truncated normal of
+    variance 1 / fan_in), biases 0, PReLU slopes 0.25; in the order of the
+    net's parameters, from a CPU ``generator``."""
+    from facerec_torch.models.arcface import truncated_normal_
+
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, (nn.Conv2d, nn.Linear)):
+                truncated_normal_(m.weight, 1.0 / m.weight[0].numel(), generator)
+                m.bias.zero_()
+            elif isinstance(m, nn.PReLU):
+                m.weight.fill_(0.25)
+    return net
+
+
 class Detections(NamedTuple):
     boxes: torch.Tensor  # [B, max_faces, 4] x1y1x2y2 (input pixels)
     probs: torch.Tensor  # [B, max_faces]

@@ -1,15 +1,18 @@
-"""Detector weight loading (counterpart of ``facerec_tpu/detect/weights.py``,
-``.npz`` branch). Resolution order: an explicit directory, then the
-``FACEREC_MTCNN_WEIGHTS`` environment variable, then ``outputs/detector``.
-Each holds ``{pnet,rnet,onet}.npz`` files of '/'-joined parameter paths, read
-with numpy alone; ``facerec_torch.convert.from_jax`` turns them into state
-dicts. The cascade's thresholds follow the weights' source: calibrated for
+"""Detector weight loading and saving (counterpart of
+``facerec_tpu/detect/weights.py``, ``.npz`` branch). Resolution order: an
+explicit directory, then the ``FACEREC_MTCNN_WEIGHTS`` environment variable,
+then ``outputs/detector``. Each holds ``{pnet,rnet,onet}.npz`` files of
+'/'-joined parameter paths, read and written with numpy alone, and a
+``source.txt`` provenance marker; ``facerec_torch.convert.from_jax`` turns
+them into state dicts and ``to_jax`` back, so each package loads the other's
+files. The cascade's thresholds follow the weights' source: calibrated for
 self-trained weights, classic for converted pretrained ones.
 """
 
 from __future__ import annotations
 
 import os
+from collections.abc import Mapping
 from pathlib import Path
 
 import numpy as np
@@ -36,6 +39,32 @@ def _unflatten(flat: dict) -> dict:
             d = d.setdefault(p, {})
         d[parts[-1]] = v
     return tree
+
+
+def flatten_tree(tree: Mapping, prefix: str = "") -> dict:
+    """'/'-joined flat ``{path: np.ndarray}`` view of a nested tree."""
+    out = {}
+    for k, v in tree.items():
+        key = f"{prefix}/{k}" if prefix else k
+        if isinstance(v, Mapping):
+            out.update(flatten_tree(v, key))
+        else:
+            out[key] = np.asarray(v)
+    return out
+
+
+def save_detector_params(params: dict, directory: str | Path = DEFAULT_DIR,
+                         source: str = "self-trained") -> Path:
+    """Save ``{"pnet", "rnet", "onet"}`` Flax-layout trees (``to_jax`` of
+    the port's nets) as ``.npz`` files with JAX's key names, plus the
+    ``source.txt`` marker, so converted pretrained weights saved here keep
+    their classic operating point."""
+    d = Path(directory)
+    d.mkdir(parents=True, exist_ok=True)
+    for net in NETS:
+        np.savez(d / f"{net}.npz", **flatten_tree(params[net]))
+    (d / "source.txt").write_text(source)
+    return d
 
 
 def load_detector_params_with_source(directory: str | Path | None = None

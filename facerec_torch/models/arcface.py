@@ -88,15 +88,21 @@ class ArcFaceNet(nn.Module):
         return cosine_logits(self.embed(x), self.arc_weight)
 
 
-def _variance_scaling_(w: torch.Tensor, scale: float, generator: torch.Generator) -> None:
-    """JAX's ``variance_scaling(scale, "fan_avg", "truncated_normal")`` for a
-    [C, D] matrix (fan_in C, fan_out D): a normal truncated to +-2 standard
-    deviations by the inverse CDF, its deviation sqrt(scale / fan_avg)
-    / 0.8796 so that the truncated draw has that variance."""
-    std = math.sqrt(scale / ((w.shape[0] + w.shape[1]) / 2.0)) / 0.87962566103423978
+def truncated_normal_(w: torch.Tensor, variance: float, generator: torch.Generator) -> None:
+    """Fill ``w`` as JAX's ``variance_scaling(..., "truncated_normal")``
+    draws: a normal truncated to +-2 standard deviations by the inverse CDF
+    of uniforms from a CPU ``generator``, its deviation sqrt(variance) /
+    0.8796 so that the truncated draw has ``variance``."""
+    std = math.sqrt(variance) / 0.87962566103423978
     lo, hi = 0.5 * (1 + math.erf(-2 / math.sqrt(2))), 0.5 * (1 + math.erf(2 / math.sqrt(2)))
     u = torch.rand(w.shape, generator=generator, dtype=torch.float64) * (hi - lo) + lo
     w.copy_(torch.special.erfinv(2 * u - 1) * math.sqrt(2) * std)
+
+
+def _variance_scaling_(w: torch.Tensor, scale: float, generator: torch.Generator) -> None:
+    """JAX's ``variance_scaling(scale, "fan_avg", "truncated_normal")`` for a
+    [C, D] matrix (fan_in C, fan_out D)."""
+    truncated_normal_(w, scale / ((w.shape[0] + w.shape[1]) / 2.0), generator)
 
 
 def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:

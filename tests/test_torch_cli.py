@@ -3,7 +3,9 @@ against the JAX package's (``facerec_tpu/cli``) on the CPU: the parser's
 surface (JAX's, plus ``--device`` and with ``check-gpu`` for ``check-tpu``),
 the train config built from the same arguments, ``list-models``, smoke runs
 of every ported command with ``--device cpu`` at a tiny size (outputs under
-a temporary root), the unported commands' refusal, the pretrained-ensemble
+a temporary root), the unported commands' refusal (``download`` and
+``bench``; ``interactive`` and ``preprocess`` run since the data side was
+ported: tests/test_torch_interactive.py), the pretrained-ensemble
 entry of ``compare_all_models`` and ``python -m facerec_torch.cli.main``."""
 
 import argparse
@@ -89,11 +91,13 @@ def test_check_gpu_on_the_cpu(capsys):
     assert info["backend"] == "cpu" and info["device_count"] == 1 and info["devices"] == ["cpu"]
 
 
-@pytest.mark.parametrize("argv", [[], ["interactive"], ["preprocess", "--test"],
+@pytest.mark.parametrize("argv", [["download"], ["download", "--dataset", "dataset1"],
+                                  ["download", "--dataset", "dataset2"],
                                   ["download", "--dataset", "lfw"], ["bench"]])
 def test_unported_commands_exit_2(argv, capsys):
+    assert sorted(NOT_PORTED) == ["bench", "download"]
     assert main(["--device", "cpu"] + argv) == 2
-    cmd = argv[0] if argv else "interactive"
+    cmd = argv[0]
     err = capsys.readouterr().err.strip().splitlines()
     assert err == [f"facerec_torch: '{cmd}' is not ported: {NOT_PORTED[cmd]} (ROADMAP.md section 1)"]
 

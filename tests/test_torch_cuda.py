@@ -370,3 +370,48 @@ def test_evaluate_model_on_the_card_matches_the_cpu(dev, tmp_path, no_tf32):
         p = [predict_image(img, cfg, names, checkpoints_root=tmp_path / "ck", device=d)
              for d in (dev, torch.device("cpu"))]
         assert p[0]["predicted_class"] == p[1]["predicted_class"] == names[card["yhat"][0]]
+
+
+def test_augment_on_the_card_matches_the_cpu(dev):
+    """``apply_augment`` on the card from CPU draws: the CPU's images
+    within 1e-5 (f32 in [0, 1])."""
+    from facerec_torch.ops.augment import AugmentParams, apply_augment, draw_augment
+
+    x = torch.rand(8, 64, 64, 3, generator=torch.Generator().manual_seed(0))
+    for p in (AugmentParams(), AugmentParams(horizontal_flip=False, p_geometry=1.0)):
+        d = draw_augment(torch.Generator().manual_seed(1), 8, p)
+        got = apply_augment(x.to(dev), d, p).cpu()
+        assert (got - apply_augment(x, d, p)).abs().max().item() <= 1e-5
+
+
+def test_detector_training_on_the_card_matches_the_cpu(dev, no_tf32):
+    """3 f32 ``train_net`` steps per net on the card against the CPU, from
+    the same seeded weights, samples and indices (chip_smoke's bars)."""
+    from chip_smoke import DET_RTOL, _net_agrees
+    from facerec_torch.detect.mtcnn import ONet, PNet, RNet
+
+    for cls, size, seed, lm in ((PNet, 12, 0, False), (RNet, 24, 1, False), (ONet, 48, 2, True)):
+        res = _net_agrees(dev, cls, size, seed, lm)
+        assert res["loss_max_rel"] <= DET_RTOL and res["param_rel"] <= DET_RTOL, res
+
+
+def test_preprocessing_on_the_card_matches_the_cpu(dev, no_tf32):
+    """``process_batch`` on the card against the CPU on 4 photos at the
+    512 px work size: the same faces, within 1% of their side, and equal
+    crops (within 1 level) from the same detections."""
+    import numpy as np
+
+    from chip_smoke import PREP_DET_SHARE, prep_agrees
+    from facerec_torch.config import PreprocessingConfig
+    from facerec_torch.data.preprocess import WORK_SIZE, BatchPreprocessor
+    from facerec_torch.data.synthetic import face_frames
+    from facerec_torch.detect.weights import load_default_detector
+
+    cfg = PreprocessingConfig()
+    pre = BatchPreprocessor(cfg, load_default_detector((WORK_SIZE, WORK_SIZE), device=dev),
+                            device=dev)
+    photos = list(face_frames(4, (480, 640), 1, np.random.default_rng(0)).astype(np.uint8))
+    res = prep_agrees(pre, photos)
+    assert res["detections_valid_equal"], res
+    assert res["box_landmark_max_share_of_side"] <= PREP_DET_SHARE, res
+    assert res["same_detections_levels"]["max"] <= 1, res

@@ -102,16 +102,17 @@ def test_tracker_and_iou_match_jax():
 
 def test_port_imports_no_jax():
     """Every facerec_torch module and chip_smoke import with jax, flax and
-    facerec_tpu made unimportable."""
+    facerec_tpu made unimportable (optax too, which the JAX trainers use)."""
     mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                   for p in (REPO / "facerec_torch").rglob("*.py"))
     mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
     code = ("import sys, importlib\n"
-            "for name in ('jax', 'jaxlib', 'flax', 'facerec_tpu'):\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'optax', 'facerec_tpu'):\n"
             "    sys.modules[name] = None\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
-            "leaked = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'facerec_tpu')"
+            "leaked = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax',"
+            " 'facerec_tpu')"
             " and sys.modules[m] is not None]\n"
             "assert not leaked, leaked\n"
             "print(len(sys.argv) and 'ok')\n")
@@ -119,18 +120,28 @@ def test_port_imports_no_jax():
                          timeout=120)
     assert out.returncode == 0, out.stderr
     assert "facerec_torch.ops.gallery" in mods and "facerec_torch.serve.pipeline" in mods
+    assert {"facerec_torch.ops.augment", "facerec_torch.data.preprocess",
+            "facerec_torch.detect.train", "facerec_torch.utils.profiling",
+            "facerec_torch.cli.interactive"} <= set(mods)
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "mtcnn", "embedder", "gallery", "evaluate_model",
                                    "predict_image", "build_default_pipeline", "find_optimal_lr",
                                    "run_cross_validation", "run_hyperparameter_tuning",
                                    "generate_visualization_report", "compare_all_models",
-                                   "cli_train"])
+                                   "cli_train", "process_raw_data", "batch_preprocessor",
+                                   "train_net", "train_detector", "interactive",
+                                   "cli_preprocess"])
 def test_entry_points_refuse_cpu_fallback(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the refusal is for machines without one")
     from facerec_torch.cli.compare import compare_all_models
+    from facerec_torch.cli.interactive import interactive_menu
     from facerec_torch.cli.main import main as cli_main
+    from facerec_torch.config import PreprocessingConfig
+    from facerec_torch.data.preprocess import BatchPreprocessor, process_raw_data
+    from facerec_torch.detect.mtcnn import PNet
+    from facerec_torch.detect.train import train_detector, train_net
     from facerec_torch.config import EvalConfig, TrainConfig, TuningConfig
     from facerec_torch.eval.engine import evaluate_model, predict_image
     from facerec_torch.eval.visualizer import generate_visualization_report
@@ -168,6 +179,13 @@ def test_entry_points_refuse_cpu_fallback(entry, tmp_path):
                                                          checkpoints_root=tmp_path,
                                                          outputs_root=tmp_path),
         "cli_train": lambda: cli_main(["train", "--dataset", str(tmp_path)]),
+        "process_raw_data": lambda: process_raw_data(tmp_path, tmp_path / "out"),
+        "batch_preprocessor": lambda: BatchPreprocessor(PreprocessingConfig(use_mtcnn=False)),
+        "train_net": lambda: train_net(PNet(), 12, 1, 1),
+        "train_detector": lambda: train_detector(tmp_path, n_scenes=1, steps=1),
+        "interactive": lambda: interactive_menu(),
+        "cli_preprocess": lambda: cli_main(["preprocess", "--raw-dir", str(tmp_path),
+                                            "--no-mtcnn"]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
