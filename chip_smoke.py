@@ -45,8 +45,20 @@ Phases, each of which raises (and so exits nonzero) on failure:
               gather warp; K1 launched, K2 not): faces/s, stage ms and fill,
               and against the fast path on the same frames the same valid
               slots and embedding cosine > 0.98 where the eye angle is within
-              +-15 degrees. On each serve path, each kernel it launched is
-              held against its plain version on the inputs that path gave it;
+              +-15 degrees;
+     serve_facenet  the 1,024-row step with a full-width InceptionResnetV1
+              (FaceNet, repeats 5/10/5, 512-d, 160 px, bf16, seed 1) as the
+              embedder: both kernels launched once, fill, the small input on
+              the card against the CPU with FaceNet, faces/s, stage ms and
+              the busy share, printed beside the ArcFace serve path's. On
+              each serve path, each kernel it launched is held against its
+              plain version on the inputs that path gave it;
+     fold     the embed stage alone, every BatchNorm folded into its
+              producer against unfolded, for the serve path's ArcFace and
+              serve_facenet's FaceNet on each path's own 384 crops (bf16,
+              BatchNorm statistics randomised from a seed): CUDA-event ms in
+              turns and the embeddings' cosine > 1 - 1e-3; launch counts
+              from 0 around the embed work, which launches neither kernel;
   6. train    the port's trainer (``train_model``) on the card with the
               configuration ``outputs/checkpoints/arcface_synth`` was trained
               with (full-width ResNet-18 ArcFace, 160 px, batch 32, 16 classes,
@@ -160,6 +172,7 @@ TRAIN_EPOCHS = 6  # past the 5-epoch margin warmup
 TRAIN_BAR = 0.5  # best val accuracy; chance is 1/16
 TRAIN_STEP_RTOL = 1e-3  # card against CPU, f32
 PRECISE_COS = 0.98  # fast against exact align within +-15 degrees (tests/test_ops.py)
+FOLD_COS = 1e-3  # folded against unfolded embeddings, bf16
 DEMO_FRAMES = 40
 ZOO_TYPES = ("cnn", "attention", "hybrid", "siamese")
 ZOO_EPOCHS = 3
@@ -510,28 +523,33 @@ def check_k2(dev):
     return serve_in, worst
 
 
-def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg, precise_align=False):
-    import torch
-
+def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg, precise_align=False,
+                   embedder: str = "arcface"):
+    """bench.py's pipeline: the committed detector, and a full-width embedder
+    from seed 1, the ResNet-18 ArcFace or (``embedder="facenet"``)
+    InceptionResnetV1 (repeats 5, 10, 5; the VGGFace2 file is not in the
+    repository)."""
     from facerec_torch.config import ServeConfig
     from facerec_torch.detect.mtcnn import MTCNN
     from facerec_torch.detect.weights import load_detector_params
     from facerec_torch.models.arcface import build_embedder
+    from facerec_torch.models.facenet import build_facenet_embedder
     from facerec_torch.serve.pipeline import FacePipeline
 
     cfg = ServeConfig(max_faces=max_faces, detection_threshold=0.0, **batch_cfg)
     det = MTCNN(frame_hw, min_face_size=40, max_faces=max_faces, k_pnet=64, k_rnet=32,
                 dtype=dtype, input_range="255", device=dev)
     det.load_jax_params(load_detector_params())
-    emb = build_embedder(dtype=dtype, seed=1, device=dev)
+    build = {"arcface": build_embedder, "facenet": build_facenet_embedder}[embedder]
+    emb = build(dtype=dtype, seed=1, device=dev)
     return FacePipeline(cfg, frame_hw, det, emb, embed_dim=512, device=dev,
                         precise_align=precise_align)
 
 
-def small_input_agrees(dev) -> None:
+def small_input_agrees(dev, embedder: str = "arcface") -> None:
     """The port's step on 2 small frames, f32, on the card (kernels) and on
-    the CPU (plain versions): same valid slots, embeddings within cosine
-    0.999, same top-1 matches."""
+    the CPU (plain versions), with ``embedder``: same valid slots,
+    embeddings within cosine 0.999, same top-1 matches."""
     import numpy as np
     import torch
 
@@ -544,7 +562,7 @@ def small_input_agrees(dev) -> None:
     results = []
     for d in (dev, torch.device("cpu")):
         pipe = build_pipeline(d, hw, 2, torch.float32,
-                              dict(gallery_capacity=16, top_k=3, embed_size=160))
+                              dict(gallery_capacity=16, top_k=3, embed_size=160), embedder=embedder)
         probe = pipe.process(frames).embeddings.reshape(-1, 512).cpu().numpy()
         g = gal.copy()
         g[[1, 5, 2, 6]] = probe + 0.02 * np.random.default_rng(4).normal(size=probe.shape)
@@ -554,7 +572,7 @@ def small_input_agrees(dev) -> None:
     va, vb = a[3], b[3]
     cos = (a[4] * b[4]).sum(-1)[va]
     same_top1 = torch.equal(a[6][..., 0][va], b[6][..., 0][vb])
-    print(f"small input card vs cpu: valid {va.sum().item()}/{vb.sum().item()} "
+    print(f"small input card vs cpu ({embedder}): valid {va.sum().item()}/{vb.sum().item()} "
           f"min_cos={cos.min().item():.6f} same_top1={same_top1}", flush=True)
     if not (torch.equal(va, vb) and va.any() and cos.min().item() > 0.999 and same_top1):
         raise AssertionError("the step on the card disagrees with the CPU step on a small input")
@@ -630,17 +648,17 @@ def precise_agrees(pipe, frames, r) -> dict:
 
 
 def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
-          precise: bool = False):
-    """Phases 4 and 5 (and serve_precise): the serve step at bench.py's
-    configuration with a bf16 gallery of ``capacity`` rows, half filled by
-    ``enroll(pipe, n)``. Returns the kernels' launches in one step, step
-    stats and the pipeline."""
+          precise: bool = False, embedder: str = "arcface"):
+    """Phases 4 and 5 (and serve_precise, serve_facenet): the serve step at
+    bench.py's configuration with a bf16 gallery of ``capacity`` rows, half
+    filled by ``enroll(pipe, n)``. Returns the kernels' launches in one
+    step, step stats and the pipeline."""
     import numpy as np
     import torch
 
     pipe = build_pipeline(dev, FRAME_HW, FACES, torch.bfloat16,
                           dict(gallery_capacity=capacity, top_k=5, embed_size=160),
-                          precise_align=precise)
+                          precise_align=precise, embedder=embedder)
     n_ids = capacity // 2
     t0 = time.perf_counter()
     enroll(pipe, n_ids)
@@ -686,12 +704,13 @@ def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
     if precise:
         extra["against_fast"] = precise_agrees(pipe, frames, r)
     if agree:
-        small_input_agrees(dev)
+        small_input_agrees(dev, embedder)
 
     stats = pipe.benchmark(frames, iters=10, warmup=2)
     stages = stage_breakdown(pipe, x)
     busy = device_busy(lambda: pipe.step(x))
-    return launches, dict(stats, gallery_rows=capacity, gallery_count=pipe.gallery.count,
+    return launches, dict(stats, embedder=embedder, gallery_rows=capacity,
+                          gallery_count=pipe.gallery.count,
                           detected=found, detected_p090=found_090, detected_expected=expected,
                           stages_ms=stages, **busy, **extra), pipe
 
@@ -779,6 +798,82 @@ def stage_breakdown(pipe, x) -> dict:
     return out
 
 
+def randomize_batchnorm(model, seed: int) -> None:
+    """tests/test_fold.py's statistics on every BatchNorm of ``model``
+    (scale U(0.5, 1.5), bias N(0, 0.3), mean N(0, 0.5), var U(0.3, 2.0)),
+    drawn on the host from ``seed``: a seeded embedder's BatchNorms are
+    identities, which leave a fold nothing to do."""
+    import torch
+
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, torch.nn.modules.batchnorm._BatchNorm):
+                n = m.num_features
+                for t, v in ((m.weight, torch.rand(n, generator=gen) + 0.5),
+                             (m.bias, torch.randn(n, generator=gen) * 0.3),
+                             (m.running_mean, torch.randn(n, generator=gen) * 0.5),
+                             (m.running_var, torch.rand(n, generator=gen) * 1.7 + 0.3)):
+                    t.copy_(v)
+
+
+def fold(pipes, frames, card: str) -> dict:
+    """The fold phase: the embed stage alone, every BatchNorm folded into
+    its producer (``models.fold.fold_batchnorm``) against unfolded, for the
+    ArcFace of ``serve`` and the FaceNet of ``serve_facenet`` on each path's
+    own 384 crops, bf16, after ``randomize_batchnorm``: CUDA-event ms in
+    turns (unfolded, folded, folded, unfolded), each one's device ms and
+    busy share (torch.profiler), and the embeddings' cosine, folded
+    against unfolded (> 1 - FOLD_COS). Serving stays unfolded. The crops
+    are made first (the serve step's detect and align, which launch K2);
+    the launch counts are then set to 0 around the embed work, which must
+    launch neither kernel. Returns the measurements and those counts."""
+    import copy
+
+    import torch
+
+    from facerec_torch.models.fold import FoldedBias, fold_batchnorm
+
+    paths = ("serve", "serve_facenet")
+    crops_of = {}
+    with torch.no_grad():
+        for path in paths:
+            pipe = pipes[path]
+            x = pipe.upload(frames)
+            d = pipe.detector.detect(x)
+            crops_of[path] = pipe.align(x, d.boxes, d.landmarks).reshape(
+                -1, pipe.config.embed_size, pipe.config.embed_size, 3)
+    out = {}
+    _zero_launches()
+    for path in paths:
+        size, crops = pipes[path].config.embed_size, crops_of.pop(path)
+        unfolded = copy.deepcopy(pipes[path].embedder)
+        randomize_batchnorm(unfolded, 7)
+        folded = fold_batchnorm(unfolded)
+        with torch.no_grad():
+            cos = (unfolded.embed(crops).float() * folded.embed(crops).float()).sum(-1)
+            ms = [_time_ms(lambda m=m: m.embed(crops), iters=10, warmup=2)
+                  for m in (unfolded, folded, folded, unfolded)]
+            busy = [device_busy(lambda m=m: m.embed(crops)) for m in (unfolded, folded)]
+        out[path] = {"embedder": type(unfolded).__name__, "crops": crops.shape[0],
+                     "gmac_per_crop": embed_macs(unfolded, size) / 1e9,
+                     "batchnorms_folded": sum(isinstance(m, FoldedBias) for m in folded.modules()),
+                     "unfolded_ms": [ms[0], ms[3]], "folded_ms": [ms[1], ms[2]],
+                     "folded_over_unfolded": (ms[1] + ms[2]) / (ms[0] + ms[3]),
+                     "device_ms_unfolded_folded": [b["device_ms_per_step"] for b in busy],
+                     "busy_share_unfolded_folded": [b["device_busy_share"] for b in busy],
+                     "min_cos": cos.min().item()}
+        del unfolded, folded, crops
+    launches = _launches()
+    print("fold: " + json.dumps(out | {"launches": launches, "card": card}), flush=True)
+    for path, r in out.items():
+        if not r["min_cos"] > 1.0 - FOLD_COS:
+            raise AssertionError(f"the folded {path} embedder disagrees with the unfolded: {r}")
+    if any(launches.values()):
+        raise AssertionError(f"the fold phase's embed stage launched a serve kernel: {launches}")
+    return out, launches
+
+
 def arcface_synth_config(epochs: int = TRAIN_EPOCHS):
     """The configuration ``outputs/checkpoints/arcface_synth`` was trained
     with, as its ``model_info.json`` records it, for ``epochs`` epochs."""
@@ -788,35 +883,40 @@ def arcface_synth_config(epochs: int = TRAIN_EPOCHS):
     return TrainConfig.from_dict(info["config"]).replace(epochs=epochs)
 
 
+def embed_macs(model, image: int) -> int:
+    """Multiply-adds of one image's ``embed`` through ``model``'s
+    convolutions and dense layers at ``image`` px, from the layer shapes."""
+    import torch
+    import torch.nn as nn
+
+    macs = 0
+
+    def count(m, _, out):
+        nonlocal macs
+        if isinstance(m, nn.Conv2d):
+            macs += out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
+        else:
+            macs += out.numel() * m.in_features
+
+    dev = next(model.parameters()).device
+    hooks = [m.register_forward_hook(count) for m in model.modules()
+             if isinstance(m, (nn.Conv2d, nn.Linear))]
+    try:
+        with torch.no_grad():
+            model.embed(torch.zeros(1, image, image, 3, device=dev))
+    finally:
+        for h in hooks:
+            h.remove()
+    return macs
+
+
 def train_flops_per_image(model, image: int) -> float:
     """FLOPs of one image's forward and backward through ``model`` at
     ``image`` px: 2 per multiply-add of every convolution, dense layer and
     the class-centre product, from the layer shapes, times 3 for the
     backward pass."""
-    import torch
-    import torch.nn as nn
-
-    fwd = 0
-
-    def count(m, _, out):
-        nonlocal fwd
-        if isinstance(m, nn.Conv2d):
-            fwd += 2 * out.numel() * (m.in_channels // m.groups) * m.kernel_size[0] * m.kernel_size[1]
-        else:
-            fwd += 2 * out.numel() * m.in_features
-
-    dev = next(model.parameters()).device
     model.eval()  # the embeddings, without labels
-    hooks = [m.register_forward_hook(count) for m in model.modules()
-             if isinstance(m, (nn.Conv2d, nn.Linear))]
-    try:
-        with torch.no_grad():
-            model(torch.zeros(1, image, image, 3, device=dev))
-    finally:
-        for h in hooks:
-            h.remove()
-    fwd += 2 * model.arc_weight.numel()
-    return 3.0 * fwd
+    return 3.0 * 2 * (embed_macs(model, image) + model.arc_weight.numel())
 
 
 def _no_dropout_model(model_type: str, num_classes: int = 16):
@@ -1917,23 +2017,36 @@ def main() -> int:
     rng = np.random.default_rng(0)
     frames = face_frames(BATCH, FRAME_HW, FACES, rng)
     print(f"rendered {BATCH} frames in {time.perf_counter() - t0:.1f} s", flush=True)
-    launches, pipes, held = {}, {}, {}
+    launches, pipes, held, served = {}, {}, {}, {}
     for path, capacity, enroll in (("serve", SERVE_ROWS, enroll_host(rng)),
                                    ("serve_1048576", BIG_ROWS, enroll_device(5)),
-                                   ("serve_precise", SERVE_ROWS, enroll_host(rng))):
-        launches[path], stats, pipes[path] = serve(dev, frames, capacity, enroll, path,
-                                                   agree=path == "serve",
-                                                   precise=path == "serve_precise")
-        print(f"{path}: " + json.dumps({key: stats[key] for key in (
-            "gallery_rows", "gallery_count", "faces_per_sec", "sec_per_batch",
+                                   ("serve_precise", SERVE_ROWS, enroll_host(rng)),
+                                   ("serve_facenet", SERVE_ROWS, enroll_host(rng))):
+        t0 = time.perf_counter()
+        launches[path], stats, pipes[path] = serve(
+            dev, frames, capacity, enroll, path, agree=path in ("serve", "serve_facenet"),
+            precise=path == "serve_precise",
+            embedder="facenet" if path == "serve_facenet" else "arcface")
+        served[path] = {"phase_s": time.perf_counter() - t0} | {key: stats[key] for key in (
+            "embedder", "gallery_rows", "gallery_count", "faces_per_sec", "sec_per_batch",
             "host_sec_per_batch", "detected", "detected_p090", "detected_expected",
             "stages_ms", "device_busy_share", "kernels_held")}
-            | {k: stats[k] for k in ("against_fast",) if k in stats} | {"card": card}),
-            flush=True)
+        print(f"{path}: " + json.dumps(served[path] | {k: stats[k] for k in ("against_fast",)
+                                                       if k in stats} | {"card": card}),
+              flush=True)
         held[path] = stats["kernels_held"]
-        if path != "serve":
+        if path not in ("serve", "serve_facenet"):
             del pipes[path]
         torch.cuda.empty_cache()
+    print("serve_facenet beside serve: " + json.dumps({p: {k: served[p][k] for k in (
+        "embedder", "phase_s", "faces_per_sec", "sec_per_batch", "stages_ms",
+        "device_busy_share")}
+        for p in ("serve", "serve_facenet")} | {"card": card}), flush=True)
+    t0 = time.perf_counter()
+    launches["fold"] = fold(pipes, frames, card)[1]
+    del pipes["serve_facenet"]
+    torch.cuda.empty_cache()
+    print(f"fold: phase {time.perf_counter() - t0:.1f} s", flush=True)
     train_stats, eval_stats, zoo_stats, tune_stats = train(dev, card)
     launches["train"] = train_stats["launches_of_port_kernels"]
     launches["eval"] = eval_stats["launches_of_port_kernels"]

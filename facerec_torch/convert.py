@@ -5,9 +5,11 @@ anything ``np.asarray`` reads) as the JAX package stores it, either a bare
 ``params`` tree (the MTCNN ``.npz`` files) or ``{"params", "batch_stats"}``
 (the embedder, and the models the trainer trains, whose statistics may come
 from ``apply(..., mutable=["batch_stats"])``), and returns a
-``{key: torch.Tensor}`` state dict for ``which`` in pnet/rnet/onet and the
+``{key: torch.Tensor}`` state dict for ``which`` in pnet/rnet/onet, the
 seven trainable types (baseline, cnn, siamese, attention, arcface, hybrid,
-ensemble). Conv kernels go HWIO -> OIHW, dense kernels [in, out] -> [out,
+ensemble) and ``facenet`` (InceptionResnetV1, whose JAX names such as
+``repeat_1_0/branch1_0`` become facenet-pytorch's ``repeat_1.0.branch1.0``).
+Conv kernels go HWIO -> OIHW, dense kernels [in, out] -> [out,
 in], LayerNorm ``scale`` -> ``weight``; the attention's [D, H, D/H] and
 [H, D/H, D] kernels flatten to [D, D]; ArcFace's class centres
 ``arc_weight`` [C, D], the hybrid's ``pos_encoding`` and the attention's
@@ -21,6 +23,7 @@ numpy arrays that the JAX package's ``.npz`` files hold.
 
 from __future__ import annotations
 
+import re
 from collections.abc import Mapping
 from typing import Any
 
@@ -93,6 +96,23 @@ def _mha(p: Mapping, out: dict, key: str) -> None:
     out[f"{key}.out.bias"] = _t(p["out"]["bias"])
 
 
+_FACENET_INDEXED = re.compile(r"^(repeat_\d|branch\d)_(\d+)$")
+
+
+def _facenet(params: Mapping, stats: Mapping, out: dict, prefix: str = "") -> None:
+    """JAX's InceptionResnetV1 tree: every module with ``scale`` is a
+    BatchNorm, one with a 4-d ``kernel`` a convolution, a 2-d one a dense
+    layer; ``repeat_i_j`` and ``branchi_j`` are Sequential members."""
+    for k, v in params.items():
+        key = prefix + _FACENET_INDEXED.sub(r"\1.\2", k)
+        if "scale" in v:
+            _bn(v, stats[k], out, key)
+        elif "kernel" in v:
+            (_conv if np.ndim(v["kernel"]) == 4 else _dense)(v, out, key)
+        else:
+            _facenet(v, stats.get(k, {}), out, key + ".")
+
+
 def _model(params: Mapping, stats: Mapping, out: dict, which: str, prefix: str = "",
            member_types: list[str] | None = None) -> None:
     """The state dict of one of the seven trainable model types, its keys
@@ -134,6 +154,8 @@ def _model(params: Mapping, stats: Mapping, out: dict, which: str, prefix: str =
             _dense(params[f"fc{i}"], out, f"{prefix}fc{i}")
         for i in (1, 2):
             _bn(params[f"fc_bn{i}"], stats[f"fc_bn{i}"], out, f"{prefix}fc_bn{i}")
+    elif which == "facenet":
+        _facenet(params, stats, out, prefix)
     elif which == "ensemble":
         if member_types is None:
             from facerec_torch.models import DEFAULT_ENSEMBLE_MEMBERS

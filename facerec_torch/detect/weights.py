@@ -1,12 +1,15 @@
 """Detector weight loading and saving (counterpart of
-``facerec_tpu/detect/weights.py``, ``.npz`` branch). Resolution order: an
-explicit directory, then the ``FACEREC_MTCNN_WEIGHTS`` environment variable,
-then ``outputs/detector``. Each holds ``{pnet,rnet,onet}.npz`` files of
-'/'-joined parameter paths, read and written with numpy alone, and a
-``source.txt`` provenance marker; ``facerec_torch.convert.from_jax`` turns
-them into state dicts and ``to_jax`` back, so each package loads the other's
-files. The cascade's thresholds follow the weights' source: calibrated for
-self-trained weights, classic for converted pretrained ones.
+``facerec_tpu/detect/weights.py``). Resolution order: an explicit
+directory, then the ``FACEREC_MTCNN_WEIGHTS`` environment variable, then
+``outputs/detector``. A directory holds either ``{pnet,rnet,onet}.npz``
+files of '/'-joined parameter paths, read and written with numpy alone, with
+a ``source.txt`` provenance marker, or facenet-pytorch's ``{pnet,rnet,
+onet}.pt`` state dicts, converted on the fly (``models.convert.
+convert_mtcnn_net``). Either way the loaders return Flax-layout trees, which
+``facerec_torch.convert.from_jax`` turns into state dicts and ``to_jax``
+back, so each package loads the other's files. The cascade's thresholds
+follow the weights' source: calibrated for self-trained weights, classic for
+pretrained ones.
 """
 
 from __future__ import annotations
@@ -69,8 +72,10 @@ def save_detector_params(params: dict, directory: str | Path = DEFAULT_DIR,
 
 def load_detector_params_with_source(directory: str | Path | None = None
                                      ) -> tuple[dict, str]:
-    """(params {net: tree}, source) with source "self-trained" unless the
-    directory's ``source.txt`` says otherwise."""
+    """(params {net: tree}, source): for ``.npz`` files "self-trained"
+    unless the directory's ``source.txt`` says otherwise; for
+    facenet-pytorch ``.pt`` files "pretrained", which runs at the classic
+    thresholds they were tuned with."""
     candidates = []
     if directory is not None:
         candidates.append(Path(directory))
@@ -86,7 +91,13 @@ def load_detector_params_with_source(directory: str | Path | None = None
             marker = d / "source.txt"
             source = marker.read_text().strip() if marker.exists() else "self-trained"
             return params, source
-    raise FileNotFoundError(f"no MTCNN .npz weights found in {[str(c) for c in candidates]}")
+        if all((d / f"{n}.pt").exists() for n in NETS):
+            from facerec_torch.convert import to_jax
+            from facerec_torch.models.convert import convert_mtcnn_net, load_torch_state_dict
+
+            return {n: to_jax(convert_mtcnn_net(load_torch_state_dict(d / f"{n}.pt"), n), n)
+                    for n in NETS}, "pretrained"
+    raise FileNotFoundError(f"no MTCNN weights found in {[str(c) for c in candidates]}")
 
 
 def load_detector_params(directory: str | Path | None = None) -> dict:

@@ -50,13 +50,15 @@ def build_default_pipeline(frame_hw: tuple[int, int] = (480, 640),
                            device: str | torch.device | None = None) -> FacePipeline:
     """The demo's pipeline on ``device`` (default: the CUDA card): the MTCNN
     with the committed detector weights at their source's thresholds (a
-    random detector without weights), and an ArcFace embedder in bf16 from
-    the port checkpoint ``CHECKPOINTS_DIR/<embedder_checkpoint>``, its
-    class-centre rows sized from the checkpoint. Without a port checkpoint
-    (the committed ``arcface_synth`` is an orbax tree, which only the JAX
-    package reads) it warns and embeds with a random ArcFace, as the JAX
-    demo does without a checkpoint. The gallery saved in
-    ``face_references/`` is loaded.
+    random detector without weights), and an embedder in bf16. The embedder
+    is, in this order: an InceptionResnetV1 from the facenet-pytorch state
+    dict (a torch-pickled ``.pt``) that ``FACEREC_FACENET_WEIGHTS`` names;
+    an ArcFace from the port checkpoint ``CHECKPOINTS_DIR/
+    <embedder_checkpoint>``, its class-centre rows sized from the
+    checkpoint (``tools/export_embedder.py`` writes one from the committed
+    orbax ``arcface_synth``, which only the JAX package reads); else, with a
+    warning, a random ArcFace, as the JAX demo does without a checkpoint.
+    The gallery saved in ``face_references/`` is loaded.
 
     ``input_range``: the pixel scale of the frames ("255" for camera
     frames, "1" or "auto" for normalised floats)."""
@@ -69,11 +71,6 @@ def build_default_pipeline(frame_hw: tuple[int, int] = (480, 640),
     from facerec_torch.models.arcface import build_embedder
 
     dev = resolve_device(device)
-    facenet_path = os.environ.get("FACEREC_FACENET_WEIGHTS")
-    if facenet_path and Path(facenet_path).exists():
-        raise NotImplementedError(
-            f"FACEREC_FACENET_WEIGHTS={facenet_path}: the InceptionResnetV1 embedder is not "
-            "ported to facerec_torch yet (ROADMAP section 1)")
     try:
         det_params, source = load_detector_params_with_source()
         thresholds = thresholds_for_source(source)
@@ -87,12 +84,19 @@ def build_default_pipeline(frame_hw: tuple[int, int] = (480, 640),
     else:
         detector.load_jax_params(det_params)
 
-    ck = _port_checkpoint(CHECKPOINTS_DIR / embedder_checkpoint) if embedder_checkpoint else None
-    if ck is None:
-        logger.warning("no facerec_torch checkpoint %r under %s (an orbax checkpoint needs the "
-                       "export tool, ROADMAP section 1): using a random-init ArcFace embedder",
-                       embedder_checkpoint, CHECKPOINTS_DIR)
-    embedder = build_embedder(checkpoint=ck, dtype=torch.bfloat16, device=dev)
+    facenet_path = os.environ.get("FACEREC_FACENET_WEIGHTS")
+    if facenet_path and Path(facenet_path).exists():
+        from facerec_torch.models.facenet import build_facenet_embedder
+
+        embedder = build_facenet_embedder(facenet_path, dtype=torch.bfloat16, device=dev)
+    else:
+        ck = (_port_checkpoint(CHECKPOINTS_DIR / embedder_checkpoint)
+              if embedder_checkpoint else None)
+        if ck is None:
+            logger.warning("no facerec_torch checkpoint %r under %s (tools/export_embedder.py "
+                           "writes one from the orbax checkpoint): using a random-init ArcFace "
+                           "embedder", embedder_checkpoint, CHECKPOINTS_DIR)
+        embedder = build_embedder(checkpoint=ck, dtype=torch.bfloat16, device=dev)
 
     pipe = FacePipeline(config, frame_hw, detector, embedder, embed_dim=512, device=dev)
     loaded = GalleryStore.load(FACE_REFERENCES_DIR, capacity=config.gallery_capacity,

@@ -415,3 +415,35 @@ def test_preprocessing_on_the_card_matches_the_cpu(dev, no_tf32):
     assert res["detections_valid_equal"], res
     assert res["box_landmark_max_share_of_side"] <= PREP_DET_SHARE, res
     assert res["same_detections_levels"]["max"] <= 1, res
+
+
+def test_facenet_step_on_the_card_matches_the_cpu(dev, no_tf32):
+    """chip_smoke's small-input check with a full-width InceptionResnetV1
+    embedder: the serve step on the card (K1 and K2 launched once a step)
+    against the CPU step, the same valid slots, cosine > 0.999, the same
+    top-1."""
+    from chip_smoke import small_input_agrees
+
+    k1, k2 = gallery_topk.launches, rotate_patches_kernel.launches
+    small_input_agrees(dev, "facenet")
+    assert (gallery_topk.launches - k1, rotate_patches_kernel.launches - k2) == (2, 2)
+
+
+@pytest.mark.parametrize("embedder", ["arcface", "facenet"])
+def test_fold_on_the_card_matches_unfolded(dev, no_tf32, embedder):
+    """``fold_batchnorm`` of a bf16 embedder on the card, its BatchNorm
+    statistics randomised: cosine against unfolded > 1 - FOLD_COS."""
+    from chip_smoke import FOLD_COS, randomize_batchnorm
+    from facerec_torch.models.facenet import build_facenet_embedder
+    from facerec_torch.models.fold import fold_batchnorm
+
+    if embedder == "arcface":
+        net = build_embedder(dtype=torch.bfloat16, device=dev)
+    else:
+        net = build_facenet_embedder(repeats=(1, 1, 1), dtype=torch.bfloat16, device=dev)
+    randomize_batchnorm(net, 3)
+    folded = fold_batchnorm(net)
+    x = torch.rand(8, 160, 160, 3, generator=torch.Generator().manual_seed(0)).to(dev) * 255
+    with torch.no_grad():
+        cos = (net.embed(x) * folded.embed(x)).sum(-1)
+    assert cos.min().item() > 1 - FOLD_COS

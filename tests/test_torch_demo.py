@@ -9,7 +9,7 @@ import pytest
 import torch
 
 import facerec_torch.serve.app as app
-from facerec_torch.config import ServeConfig
+from facerec_torch.config import CHECKPOINTS_DIR, ServeConfig
 from facerec_torch.detect.mtcnn import MTCNN
 from facerec_torch.detect.weights import CALIBRATED_THRESHOLDS, load_detector_params
 from facerec_torch.models.arcface import ArcFaceNet, build_embedder, init_like_flax
@@ -175,9 +175,16 @@ def no_references(tmp_path, monkeypatch):
     return tmp_path / "refs"
 
 
-def test_build_default_pipeline_orbax_checkpoint(no_references, caplog):
+def test_build_default_pipeline_orbax_checkpoint(no_references, tmp_path, monkeypatch, caplog):
     """The committed arcface_synth is an orbax tree: warn, embed with a
-    random ArcFace (18 class centres, as JAX's no-checkpoint branch)."""
+    random ArcFace (18 class centres, as JAX's no-checkpoint branch). The
+    checkpoints directory holds the committed files alone, so a port
+    checkpoint that tools/export_embedder.py wrote beside them is not seen."""
+    committed = CHECKPOINTS_DIR / "arcface_synth"
+    (tmp_path / "ck" / "arcface_synth").mkdir(parents=True)
+    for name in ("best", "model_info.json"):
+        (tmp_path / "ck" / "arcface_synth" / name).symlink_to(committed / name)
+    monkeypatch.setattr(app, "CHECKPOINTS_DIR", tmp_path / "ck")
     with caplog.at_level(logging.WARNING, logger="facerec_torch"):
         pipe = app.build_default_pipeline((96, 96), ServeConfig(max_faces=2), device="cpu")
     assert any("random-init ArcFace" in r.getMessage() for r in caplog.records)
@@ -207,8 +214,17 @@ def test_build_default_pipeline_port_checkpoint(no_references, tmp_path, monkeyp
 
 
 def test_build_default_pipeline_refuses_facenet(no_references, tmp_path, monkeypatch):
+    """FACEREC_FACENET_WEIGHTS naming a file that holds no torch-pickled
+    state dict is refused, not replaced by the ArcFace fallback: an empty
+    file, and a ``.npz``, which the JAX demo's docstring offers but its
+    ``torch.load`` cannot read either (ROADMAP section 3). A real one is
+    served: tests/test_torch_facenet.py."""
     weights = tmp_path / "facenet.pt"
     monkeypatch.setenv("FACEREC_FACENET_WEIGHTS", str(weights))
     weights.write_bytes(b"")
-    with pytest.raises(NotImplementedError, match="InceptionResnetV1"):
+    with pytest.raises(EOFError):
+        app.build_default_pipeline((96, 96), device="cpu")
+    np.savez(tmp_path / "facenet.npz", w=np.zeros(3, np.float32))
+    monkeypatch.setenv("FACEREC_FACENET_WEIGHTS", str(tmp_path / "facenet.npz"))
+    with pytest.raises(RuntimeError):
         app.build_default_pipeline((96, 96), device="cpu")

@@ -122,7 +122,8 @@ def test_port_imports_no_jax():
     assert "facerec_torch.ops.gallery" in mods and "facerec_torch.serve.pipeline" in mods
     assert {"facerec_torch.ops.augment", "facerec_torch.data.preprocess",
             "facerec_torch.detect.train", "facerec_torch.utils.profiling",
-            "facerec_torch.cli.interactive"} <= set(mods)
+            "facerec_torch.cli.interactive", "facerec_torch.models.facenet",
+            "facerec_torch.models.convert", "facerec_torch.models.fold"} <= set(mods)
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "mtcnn", "embedder", "gallery", "evaluate_model",
@@ -131,7 +132,8 @@ def test_port_imports_no_jax():
                                    "generate_visualization_report", "compare_all_models",
                                    "cli_train", "process_raw_data", "batch_preprocessor",
                                    "train_net", "train_detector", "interactive",
-                                   "cli_preprocess"])
+                                   "cli_preprocess", "facenet_embedder", "exported_embedder",
+                                   "folded_arcface", "folded_facenet"])
 def test_entry_points_refuse_cpu_fallback(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the refusal is for machines without one")
@@ -145,7 +147,9 @@ def test_entry_points_refuse_cpu_fallback(entry, tmp_path):
     from facerec_torch.config import EvalConfig, TrainConfig, TuningConfig
     from facerec_torch.eval.engine import evaluate_model, predict_image
     from facerec_torch.eval.visualizer import generate_visualization_report
-    from facerec_torch.models import get_model
+    from facerec_torch.models import ArcFaceNet, get_model
+    from facerec_torch.models.facenet import InceptionResnetV1, build_facenet_embedder
+    from facerec_torch.models.fold import folded_arcface, folded_facenet
     from facerec_torch.serve.app import build_default_pipeline
     from facerec_torch.train.cross_validation import run_cross_validation
     from facerec_torch.train.lr_finder import find_optimal_lr
@@ -186,6 +190,10 @@ def test_entry_points_refuse_cpu_fallback(entry, tmp_path):
         "interactive": lambda: interactive_menu(),
         "cli_preprocess": lambda: cli_main(["preprocess", "--raw-dir", str(tmp_path),
                                             "--no-mtcnn"]),
+        "facenet_embedder": lambda: build_facenet_embedder(),
+        "exported_embedder": lambda: build_embedder(checkpoint=tmp_path / "final"),
+        "folded_arcface": lambda: folded_arcface(ArcFaceNet(num_classes=2).state_dict()),
+        "folded_facenet": lambda: folded_facenet(InceptionResnetV1((1, 1, 1)).state_dict()),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
