@@ -53,6 +53,31 @@ Phases, each of which raises (and so exits nonzero) on failure:
               the busy share, printed beside the ArcFace serve path's. On
               each serve path, each kernel it launched is held against its
               plain version on the inputs that path gave it;
+     mesh     the mesh path (``facerec_torch/parallel``): at world size 1
+              over NCCL, the serve step through ``FacePipeline(mesh=(1, 1))``
+              and one f32 ArcFace train step through the mesh path, each
+              ``torch.equal`` to the plain one (both kernels once); then two
+              ranks that time-share the card over gloo (spawned; a rank that
+              fails fails the phase): (data 1, model 2) serve on a
+              1,048,576-row bf16 gallery with 786,431 rows enrolled on the
+              card (shard 1 holds 262,143), its merged matches against one
+              process's (indices equal but for near-ties as in phase 2,
+              scores within 1e-5, valid slots equal) before and after a
+              remove that moves row 524,288 across the boundary; (data 2,
+              model 1) serve on the 1,024-row gallery, 24 frames a rank, its
+              valid slots and indices equal to one process's step on the
+              same 24 frames and its embeddings within cosine 0.999 (the
+              agreement with the 48-frame step printed beside: bf16
+              convolutions round per batch size); (data 2, model 1) three f32
+              ArcFace steps at the arcface_synth configuration, global batch
+              32 with dropout and BatchNorm over the global batch, each
+              within 1e-3 of one process's step from the same state on
+              loss, grad_norm and parameters (the free runs' drift from one
+              process, and one process's from itself, printed). Counts
+              from 0 per layout and rank (K1 and K2 once a serve step, 0 in
+              training), each kernel held on the rank's own inputs, faces/s
+              and step ms per rank (two ranks on one card: no multi-card
+              speed);
      fold     the embed stage alone, every BatchNorm folded into its
               producer against unfolded, for the serve path's ArcFace and
               serve_facenet's FaceNet on each path's own 384 crops (bf16,
@@ -172,6 +197,7 @@ TRAIN_EPOCHS = 6  # past the 5-epoch margin warmup
 TRAIN_BAR = 0.5  # best val accuracy; chance is 1/16
 TRAIN_STEP_RTOL = 1e-3  # card against CPU, f32
 PRECISE_COS = 0.98  # fast against exact align within +-15 degrees (tests/test_ops.py)
+SMALL_INPUT_COS = 0.999  # card against CPU on a small input; the (2, 1) mesh layout's bar
 FOLD_COS = 1e-3  # folded against unfolded embeddings, bf16
 DEMO_FRAMES = 40
 ZOO_TYPES = ("cnn", "attention", "hybrid", "siamese")
@@ -524,11 +550,11 @@ def check_k2(dev):
 
 
 def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg, precise_align=False,
-                   embedder: str = "arcface"):
+                   embedder: str = "arcface", mesh=None):
     """bench.py's pipeline: the committed detector, and a full-width embedder
     from seed 1, the ResNet-18 ArcFace or (``embedder="facenet"``)
     InceptionResnetV1 (repeats 5, 10, 5; the VGGFace2 file is not in the
-    repository)."""
+    repository); over ``mesh`` when one is given."""
     from facerec_torch.config import ServeConfig
     from facerec_torch.detect.mtcnn import MTCNN
     from facerec_torch.detect.weights import load_detector_params
@@ -543,7 +569,7 @@ def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg, precise_align=Fal
     build = {"arcface": build_embedder, "facenet": build_facenet_embedder}[embedder]
     emb = build(dtype=dtype, seed=1, device=dev)
     return FacePipeline(cfg, frame_hw, det, emb, embed_dim=512, device=dev,
-                        precise_align=precise_align)
+                        precise_align=precise_align, mesh=mesh)
 
 
 def small_input_agrees(dev, embedder: str = "arcface") -> None:
@@ -574,7 +600,8 @@ def small_input_agrees(dev, embedder: str = "arcface") -> None:
     same_top1 = torch.equal(a[6][..., 0][va], b[6][..., 0][vb])
     print(f"small input card vs cpu ({embedder}): valid {va.sum().item()}/{vb.sum().item()} "
           f"min_cos={cos.min().item():.6f} same_top1={same_top1}", flush=True)
-    if not (torch.equal(va, vb) and va.any() and cos.min().item() > 0.999 and same_top1):
+    if not (torch.equal(va, vb) and va.any() and cos.min().item() > SMALL_INPUT_COS
+            and same_top1):
         raise AssertionError("the step on the card disagrees with the CPU step on a small input")
 
 
@@ -606,7 +633,8 @@ def hold_path_kernels(path: str, pipe, x, r) -> dict:
 
     cfg = pipe.config
     q = r.embeddings.reshape(-1, r.embeddings.shape[-1]).float()
-    err = {"gallery_topk": _k1_case(path, q, pipe.gallery.embeddings, pipe.gallery.count,
+    # a gallery sharded over the mesh's model axis: this rank's rows and count
+    err = {"gallery_topk": _k1_case(path, q, pipe.gallery.embeddings, pipe.gallery.local_count,
                                     cfg.top_k, 2e-3)[0]}
     if not pipe.precise_align:
         lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)
@@ -717,12 +745,12 @@ def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
 
 def enroll_host(rng):
     """Half the gallery from host normals, one upload (bench.py's small
-    galleries)."""
+    galleries). The last rows enrolled stay in ``enroll.rows``."""
     import numpy as np
 
     def enroll(pipe, n):
-        pipe.gallery.add_many([f"id_{i}" for i in range(n)],
-                              rng.normal(size=(n, 512)).astype(np.float32))
+        enroll.rows = rng.normal(size=(n, 512)).astype(np.float32)
+        pipe.gallery.add_many([f"id_{i}" for i in range(n)], enroll.rows)
     return enroll
 
 
@@ -1967,6 +1995,454 @@ def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held) -> list[dict]:
     ]
 
 
+MESH_ENROLLED = 786_431  # of BIG_ROWS over 2 model ranks: shard 0 full, shard 1 262,143
+MESH_REMOVED = "id_1000"  # a row of shard 0: row 524,288 then slides across the boundary
+MESH_TRAIN_STEPS = 3
+MESH_TIMEOUT_S = 300
+
+
+def _mesh_train_batch():
+    """32 seeded faces of 160 px, 16 people (the arcface_synth classes), as
+    one global batch."""
+    import numpy as np
+
+    from facerec_torch.data.datasets import _imagenet_normalize
+    from facerec_torch.data.synthetic import make_synthetic_arrays
+
+    imgs, labels = make_synthetic_arrays(num_classes=16, per_class=2, size=160, seed=3)
+    return {"image": _imagenet_normalize(imgs), "label": labels.astype(np.int32),
+            "mask": np.ones(len(labels), np.float32)}
+
+
+def _mesh_train_state(dev, mesh=None):
+    """The arcface_synth model (dropout on) and optimizer from the config's
+    seed, replicated over ``mesh``."""
+    from facerec_torch.models import get_model
+    from facerec_torch.parallel.mesh import shard_params
+    from facerec_torch.train.state import create_train_state
+
+    cfg = arcface_synth_config()
+    arc = cfg.arcface
+    net = get_model("arcface", num_classes=16, param_dtype=cfg.param_dtype,
+                    dropout_rate=cfg.dropout_rate,
+                    arcface_kwargs=dict(margin=arc.margin, scale=arc.scale,
+                                        easy_margin=arc.easy_margin,
+                                        progressive_margin=arc.progressive_margin,
+                                        warmup_epochs=arc.warmup_epochs))
+    state = create_train_state(net, cfg, "arcface", dev)
+    if mesh is not None:
+        shard_params(net, mesh)
+    state.epoch = 2.0
+    return state
+
+
+def _mesh_train_steps(state, batch, mesh=None) -> dict:
+    """``MESH_TRAIN_STEPS`` f32 steps; loss and grad_norm of each, and the
+    CUDA-event ms of the steps after the first."""
+    import torch
+
+    from facerec_torch.train.steps import make_train_step
+
+    step = make_train_step("arcface", "float32", mesh)
+    out, ms = [], []
+    for i in range(MESH_TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        m = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        out.append({"loss": float(m["loss_sum"] / m["count"]), "grad_norm": float(m["grad_norm"])})
+        if i:
+            ms.append(start.elapsed_time(end))
+    return {"steps": out, "ms_per_step": sum(ms) / len(ms)}
+
+
+def _mesh_train_per_step(state, batch, mesh) -> tuple[list[dict], list[dict]]:
+    """``MESH_TRAIN_STEPS`` data-parallel steps, each held against one
+    process's step from the same state on the global batch (rank 0 takes
+    it on a copy of the state). Returns (rank 0's relative differences of
+    loss, grad_norm and the parameters after the step (one vector, L2);
+    the data-parallel steps' loss and grad_norm)."""
+    import copy
+
+    import torch
+
+    from facerec_torch.parallel.mesh import shard_batch
+    from facerec_torch.train.steps import make_train_step
+
+    dp_step = make_train_step("arcface", "float32", mesh)
+    one_step = make_train_step("arcface", "float32")
+    local = shard_batch(batch, mesh)
+    whole = {k: torch.from_numpy(v).to(mesh.device) for k, v in batch.items()}
+
+    def params(st):
+        return torch.cat([p.detach().float().reshape(-1) for p in st.model.parameters()])
+
+    out, free = [], []
+    for _ in range(MESH_TRAIN_STEPS):
+        twin = copy.deepcopy(state) if mesh.is_primary else None
+        m = dp_step(state, local)
+        free.append({"loss": float(m["loss_sum"] / m["count"]), "grad_norm": float(m["grad_norm"])})
+        if twin is not None:
+            m1 = one_step(twin, whole)
+            a, b = params(state), params(twin)
+            out.append({k: abs(float(m[k]) - float(m1[k])) / abs(float(m1[k]))
+                        for k in ("loss_sum", "grad_norm")}
+                       | {"params_l2": ((a - b).norm() / b.norm()).item()})
+    return out, free
+
+
+def mesh_one_rank(dev, serve_pipe, frames, rows) -> tuple[dict, object]:
+    """The mesh path at world size 1 over NCCL: the serve step through
+    ``FacePipeline(mesh=(1, 1))`` against the plain pipeline with the same
+    detector, embedder and gallery, ``torch.equal`` on every field, both
+    kernels once; one f32 ArcFace train step through the mesh path against
+    the plain step, ``torch.equal`` on loss, grad_norm and every parameter
+    (cuDNN set deterministic for the two, so that its backward sums in one
+    order). Returns (launches, the plain step's result)."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from facerec_torch.config import MeshConfig
+    from facerec_torch.parallel.mesh import build_mesh
+    from facerec_torch.serve.pipeline import FacePipeline
+
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
+                                rank=0)
+        try:
+            mesh = build_mesh(MeshConfig(), device=dev)
+            pipe = FacePipeline(serve_pipe.config, FRAME_HW, serve_pipe.detector,
+                                serve_pipe.embedder, embed_dim=512, mesh=mesh)
+            pipe.gallery.add_many([f"id_{i}" for i in range(len(rows))], rows)
+            plain = serve_pipe.process(frames)
+            _zero_launches()
+            r = pipe.process(frames)
+            torch.cuda.synchronize()
+            launches = _launches()
+            same = {f: torch.equal(a, b) for f, a, b in zip(r._fields, r, plain)}
+            deterministic = torch.backends.cudnn.deterministic
+            torch.backends.cudnn.deterministic = True
+            try:
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in _step_batch("arcface").items()}
+                states = [_mesh_train_state(dev, m) for m in (None, mesh)]
+                from facerec_torch.train.steps import make_train_step
+
+                ms = [make_train_step("arcface", "float32", m)(st, batch)
+                      for m, st in zip((None, mesh), states)]
+            finally:
+                torch.backends.cudnn.deterministic = deterministic
+            train_same = {k: torch.equal(ms[0][k], ms[1][k]) for k in ("loss_sum", "grad_norm")}
+            train_same["params"] = all(torch.equal(a, b) for a, b in zip(
+                states[0].model.state_dict().values(), states[1].model.state_dict().values()))
+        finally:
+            dist.destroy_process_group()
+    out = {"serve_equal": same, "train_equal": train_same, "launches": launches}
+    print("mesh 1x1 (nccl): " + json.dumps(out), flush=True)
+    if not (all(same.values()) and all(train_same.values())):
+        raise AssertionError(f"the mesh path at world size 1 differs from the plain path: {out}")
+    if launches != {"gallery_topk": 1, "shear_rotate": 1}:
+        raise AssertionError(f"the (1, 1) mesh step launched {launches}")
+    return launches, plain
+
+
+def _mesh_rows(dev):
+    """The (1, 2) layout's ``MESH_ENROLLED`` gallery rows, seeded on the card."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(11)
+    return torch.randn(MESH_ENROLLED, 512, generator=gen, device=dev)
+
+
+def _mesh_serve(pipe, frames, path: str) -> tuple:
+    """Warm-up, then one step with the counts from 0, the kernels held on
+    this rank's inputs, and faces/s (CUDA events, all ranks stepping
+    together on one card)."""
+    import torch
+
+    x = pipe.upload(frames)
+    pipe.step(x)
+    torch.cuda.synchronize()
+    pipe.mesh.barrier()
+    _zero_launches()
+    r = pipe.step(x)
+    torch.cuda.synchronize()
+    launches = _launches()
+    held = hold_path_kernels(path, pipe, x, r)
+    pipe.mesh.barrier()
+    stats = pipe.benchmark(frames, iters=5, warmup=1)
+    return r, launches, held, stats
+
+
+def mesh_rank(rank: int, world: int, tmp: str) -> None:
+    """One of two ranks that share the card over gloo (NCCL refuses two
+    ranks on one card): the (1, 2) serve layout on the 1,048,576-row
+    gallery, before and after ``MESH_REMOVED``; the (2, 1) serve layout on
+    the 1,024-row gallery; and the (2, 1) train steps. Writes
+    ``rank<r>.pt``; raises, and so exits nonzero, on any fault."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT))
+    from facerec_torch.config import MeshConfig
+    from facerec_torch.parallel.mesh import build_mesh, shard_batch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{tmp}/rendezvous", world_size=world,
+                            rank=rank)
+    frames = np.load(f"{tmp}/frames.npy")
+    out = {}
+    mesh = build_mesh(MeshConfig(data_parallel=1, model_parallel=2), device="cuda")
+    pipe = build_pipeline(mesh.device, FRAME_HW, FACES, torch.bfloat16,
+                          dict(gallery_capacity=BIG_ROWS, top_k=5, embed_size=160), mesh=mesh)
+    pipe.gallery.add_many_device([f"id_{i}" for i in range(MESH_ENROLLED)],
+                                 _mesh_rows(mesh.device))
+    torch.cuda.empty_cache()
+    r, launches, held, stats = _mesh_serve(pipe, frames, f"mesh_1x2_rank{rank}")
+    local_count = pipe.gallery.local_count
+    pipe.gallery.remove(MESH_REMOVED)
+    r2 = pipe.step(pipe.upload(frames))
+    out["1x2"] = {"launches": launches, "held": held, "local_count": local_count,
+                  "faces_per_sec": stats["faces_per_sec"], "sec_per_batch": stats["sec_per_batch"],
+                  "valid": r.valid.cpu(), "idx": r.match_indices.cpu(),
+                  "scores": r.match_scores.cpu(), "idx_after": r2.match_indices.cpu(),
+                  "scores_after": r2.match_scores.cpu()}
+    del pipe, r, r2
+    torch.cuda.empty_cache()
+
+    mesh = build_mesh(MeshConfig(data_parallel=2), device="cuda")
+    pipe = build_pipeline(mesh.device, FRAME_HW, FACES, torch.bfloat16,
+                          dict(gallery_capacity=SERVE_ROWS, top_k=5, embed_size=160), mesh=mesh)
+    rows = np.load(f"{tmp}/serve_rows.npy")
+    pipe.gallery.add_many([f"id_{i}" for i in range(len(rows))], rows)
+    r, launches, held, stats = _mesh_serve(pipe, frames, f"mesh_2x1_rank{rank}")
+    out["2x1"] = {"launches": launches, "held": held, "data_index": mesh.coords[0],
+                  "frames": int(r.valid.shape[0]), "faces_per_sec": stats["faces_per_sec"],
+                  "sec_per_batch": stats["sec_per_batch"], "valid": r.valid.cpu(),
+                  "idx": r.match_indices.cpu(), "embeddings": r.embeddings.float().cpu()}
+    del pipe, r
+    torch.cuda.empty_cache()
+
+    # deterministic cuDNN, as for the one-process references: a rerun then
+    # gives the same numbers (default cuDNN sums some gradients with atomics)
+    torch.backends.cudnn.deterministic = True
+    _zero_launches()
+    state = _mesh_train_state(mesh.device, mesh)
+    batch = _mesh_train_batch()
+    per_step, free = _mesh_train_per_step(state, batch, mesh)
+    timed = _mesh_train_steps(state, shard_batch(batch, mesh), mesh)  # 3 more steps
+    res = {"per_step": per_step, "steps": free, "ms_per_step": timed["ms_per_step"],
+           "launches": _launches()}
+    out["2x1_train"] = res
+    torch.save(out, f"{tmp}/rank{rank}.pt")
+    dist.destroy_process_group()
+
+
+def _spawn_mesh_ranks(tmp: str, world: int = 2) -> list[dict]:
+    """``mesh_rank`` in ``world`` spawned processes (the parent's CUDA
+    context forbids fork), joined within ``MESH_TIMEOUT_S``; any rank that
+    fails or outlasts it fails the phase, and every rank still running is
+    killed."""
+    import multiprocessing
+
+    import torch
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=mesh_rank, args=(r, world, tmp)) for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + MESH_TIMEOUT_S
+    while time.monotonic() < deadline and any(p.exitcode is None for p in procs):
+        if any(p.exitcode not in (None, 0) for p in procs):
+            break
+        time.sleep(0.2)
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join(30)
+    codes = [p.exitcode for p in procs]
+    if codes != [0] * world:
+        raise AssertionError(f"mesh ranks exited {codes} (a rank failed, or the phase "
+                             f"outlasted {MESH_TIMEOUT_S} s)")
+    return [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
+
+
+def _near_ties(q, gallery, ref_idx, got_idx) -> tuple[int, float]:
+    """Slots whose index differs from the one-process step's, and the
+    largest gap between the two rows' one-process scores there (queries
+    rounded to the gallery dtype, as K1 rounds them)."""
+    import torch
+
+    differ = got_idx != ref_idx
+    if not differ.any():
+        return 0, 0.0
+    qq = q.to(gallery.dtype).float()[:, None, :].expand(-1, ref_idx.shape[1], -1)[differ]
+    a = (qq * gallery[ref_idx[differ].long()].float()).sum(-1)
+    b = (qq * gallery[got_idx[differ].long()].float()).sum(-1)
+    return int(differ.sum()), (a - b).abs().max().item()
+
+
+def _agreement(got: dict, plain, data_index: int) -> dict:
+    """A (2, 1) rank's results against the one-process 48-frame step's rows
+    of its frames: the same valid slots, the share of slots with the same
+    top-5, the smallest embedding cosine over the valid slots."""
+    import torch
+
+    per = BATCH // 2
+    sl = slice(data_index * per, (data_index + 1) * per)
+    valid = plain.valid[sl].cpu()
+    cos = (got["embeddings"] * plain.embeddings[sl].float().cpu()).sum(-1)[valid]
+    same = (got["idx"] == plain.match_indices[sl].cpu()).all(-1)
+    return {"same_valid": bool(torch.equal(got["valid"], valid)),
+            "same_top5_share": same.float().mean().item(),
+            "min_cos": cos.min().item() if cos.numel() else None}
+
+
+def mesh(dev, frames, serve_pipe, rows, card) -> tuple[dict, dict, dict]:
+    """The mesh phase: world size 1 over NCCL (``mesh_one_rank``), then two
+    ranks time-sharing the card over gloo (``mesh_rank``) against one
+    process's results: the (1, 2) serve layout's merged matches (indices
+    equal but for near-ties, as in phase 2; scores within 1e-5; valid slots
+    equal; again after a remove that moves a row across the shard
+    boundary), the (2, 1) layout's valid slots and indices (equal) and
+    embeddings (cosine > ``SMALL_INPUT_COS``) against one process on the
+    rank's 24 frames (and, reported, on all 48), and the (2, 1) train steps
+    (each step's loss, grad_norm and parameters within ``TRAIN_STEP_RTOL``
+    of one process's step from the same state). Returns
+    (launches by layout and rank, kernel errors by path, stats)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from facerec_torch.serve.pipeline import FacePipeline
+
+    t0 = time.perf_counter()
+    launches, plain = {}, None
+    launches["mesh_1x1"], plain = mesh_one_rank(dev, serve_pipe, frames, rows)
+    stats = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        np.save(f"{tmp}/frames.npy", frames)
+        np.save(f"{tmp}/serve_rows.npy", rows)
+        # one process's results: the (1, 2) layout's gallery whole, the train steps
+        big = FacePipeline(dataclasses.replace(serve_pipe.config, gallery_capacity=BIG_ROWS),
+                           FRAME_HW, serve_pipe.detector, serve_pipe.embedder, 512, device=dev)
+        big.gallery.add_many_device([f"id_{i}" for i in range(MESH_ENROLLED)], _mesh_rows(dev))
+        ref = big.process(frames)
+        big.gallery.remove(MESH_REMOVED)
+        ref_after = big.process(frames)
+        # the (2, 1) layout's rank d runs frames [24 d, 24 d + 24): one
+        # process's step on the same 24 frames (at 48, bf16 convolutions
+        # pick other algorithms and round elsewhere; reported beside)
+        halves = [serve_pipe.process(frames[d * (BATCH // 2):(d + 1) * (BATCH // 2)])
+                  for d in range(2)]
+        whole = {k: torch.from_numpy(v).to(dev) for k, v in _mesh_train_batch().items()}
+        # one process's three steps, with deterministic cuDNN as the ranks
+        # take them, and with the default: how far the run drifts from itself
+        deterministic = torch.backends.cudnn.deterministic
+        train_ref = []
+        for det in (True, False):
+            torch.backends.cudnn.deterministic = det
+            train_ref.append(_mesh_train_steps(_mesh_train_state(dev), whole))
+        torch.backends.cudnn.deterministic = deterministic
+        torch.cuda.empty_cache()
+        ranks = _spawn_mesh_ranks(tmp)
+
+    q = ref.embeddings.reshape(-1, 512).float()
+    one_big = {}
+    for rank, got in enumerate(ranks):
+        g = got["1x2"]
+        launches[f"mesh_1x2_rank{rank}"] = g["launches"]
+        ties, gap = _near_ties(q, big.gallery.embeddings, ref.match_indices.reshape(-1, 5),
+                               g["idx"].to(dev).reshape(-1, 5))
+        ties2, gap2 = _near_ties(q, big.gallery.embeddings,
+                                 ref_after.match_indices.reshape(-1, 5),
+                                 g["idx_after"].to(dev).reshape(-1, 5))
+        err = max((g["scores"].to(dev) - ref.match_scores).abs().max().item(),
+                  (g["scores_after"].to(dev) - ref_after.match_scores).abs().max().item())
+        one_big[rank] = {"local_count": g["local_count"], "near_tie_slots": [ties, ties2],
+                         "near_tie_gap": max(gap, gap2), "max_score_err": err,
+                         "same_valid": bool(torch.equal(g["valid"].to(dev), ref.valid))}
+        slots = ref.match_indices.numel()
+        if not (one_big[rank]["same_valid"] and err <= 1e-5 and max(gap, gap2) <= 1e-5
+                and max(ties, ties2) <= MAX_NEAR_TIE_SHARE * slots):
+            raise AssertionError(f"the (1, 2) mesh step disagrees with one process: "
+                                 f"{one_big[rank]}")
+    del big
+    stats["1x2"] = {"faces_per_sec_by_rank": [g["1x2"]["faces_per_sec"] for g in ranks],
+                    "sec_per_batch_by_rank": [g["1x2"]["sec_per_batch"] for g in ranks],
+                    "against_one_process": one_big, "gallery_rows": BIG_ROWS,
+                    "enrolled": MESH_ENROLLED}
+    print("mesh 1x2 serve (gloo, 2 ranks on one card): " + json.dumps(
+        stats["1x2"] | {"launches": [g["1x2"]["launches"] for g in ranks], "card": card}),
+        flush=True)
+
+    two = {}
+    for rank, got in enumerate(ranks):
+        g = got["2x1"]
+        launches[f"mesh_2x1_rank{rank}"] = g["launches"]
+        ref = halves[g["data_index"]]
+        valid = ref.valid.cpu()
+        cos = (g["embeddings"] * ref.embeddings.float().cpu()).sum(-1)[valid]
+        whole = _agreement(g, plain, g["data_index"])
+        two[rank] = {"frames": g["frames"], "same_valid": bool(torch.equal(g["valid"], valid)),
+                     "same_idx": bool(torch.equal(g["idx"], ref.match_indices.cpu())),
+                     "min_cos": cos.min().item() if cos.numel() else None,
+                     "against_the_48_frame_step": whole,
+                     "one_process_24_against_48_frames": _agreement(
+                         {"valid": valid, "idx": ref.match_indices.cpu(),
+                          "embeddings": ref.embeddings.float().cpu()}, plain, g["data_index"])}
+        if not (g["frames"] == BATCH // 2 and two[rank]["same_valid"] and two[rank]["same_idx"]
+                and cos.numel() and two[rank]["min_cos"] > SMALL_INPUT_COS):
+            raise AssertionError(f"the (2, 1) mesh step disagrees with one process: {two[rank]}")
+    stats["2x1"] = {"faces_per_sec_by_rank": [g["2x1"]["faces_per_sec"] for g in ranks],
+                    "sec_per_batch_by_rank": [g["2x1"]["sec_per_batch"] for g in ranks],
+                    "against_one_process": two, "gallery_rows": SERVE_ROWS}
+    print("mesh 2x1 serve (gloo, 2 ranks on one card): " + json.dumps(
+        stats["2x1"] | {"launches": [g["2x1"]["launches"] for g in ranks], "card": card}),
+        flush=True)
+
+    # Each data-parallel step is held against one process's step from the
+    # same state (rank 0, on a copy). Three free-running AdamW steps are
+    # not: AdamW moves every parameter by about the LR whatever its
+    # gradient's size, so gradients within rounding of 0 step either way,
+    # and one process drifts from itself about as far (deterministic
+    # against default cuDNN, printed beside the free runs' drift).
+    t = ranks[0]["2x1_train"]
+    launches.update({f"mesh_2x1_train_rank{r}": got["2x1_train"]["launches"]
+                     for r, got in enumerate(ranks)})
+
+    def drift(a, b):
+        return [{k: abs(x[k] - y[k]) / abs(y[k]) for k in ("loss", "grad_norm")}
+                for x, y in zip(a["steps"], b["steps"])]
+
+    stats["2x1_train"] = {"ms_per_step_by_rank": [g["2x1_train"]["ms_per_step"] for g in ranks],
+                          "one_process_ms_per_step": train_ref[0]["ms_per_step"],
+                          "per_step_against_one_process": t["per_step"],
+                          "free_run_against_one_process": drift(t, train_ref[0]),
+                          "one_process_default_against_deterministic_cudnn":
+                              drift(train_ref[1], train_ref[0]),
+                          "global_batch": 32, "steps": MESH_TRAIN_STEPS}
+    print("mesh 2x1 train (gloo, 2 ranks on one card): " + json.dumps(
+        stats["2x1_train"] | {"card": card}), flush=True)
+    if any(v > TRAIN_STEP_RTOL for s in t["per_step"] for v in s.values()):
+        raise AssertionError(f"the (2, 1) train steps disagree with one process: "
+                             f"{stats['2x1_train']}")
+    for key, got in launches.items():
+        want = 0 if "train" in key else 1
+        if got != {"gallery_topk": want, "shear_rotate": want}:
+            raise AssertionError(f"the {key} layout launched {got}")
+    held = {f"mesh_{lay}_rank{r}": got[lay]["held"] for r, got in enumerate(ranks)
+            for lay in ("1x2", "2x1")}
+    stats["phase_s"] = time.perf_counter() - t0
+    return launches, held, stats
+
+
 def main() -> int:
     try:
         import torch
@@ -2018,7 +2494,8 @@ def main() -> int:
     frames = face_frames(BATCH, FRAME_HW, FACES, rng)
     print(f"rendered {BATCH} frames in {time.perf_counter() - t0:.1f} s", flush=True)
     launches, pipes, held, served = {}, {}, {}, {}
-    for path, capacity, enroll in (("serve", SERVE_ROWS, enroll_host(rng)),
+    serve_enroll = enroll_host(rng)
+    for path, capacity, enroll in (("serve", SERVE_ROWS, serve_enroll),
                                    ("serve_1048576", BIG_ROWS, enroll_device(5)),
                                    ("serve_precise", SERVE_ROWS, enroll_host(rng)),
                                    ("serve_facenet", SERVE_ROWS, enroll_host(rng))):
@@ -2042,6 +2519,12 @@ def main() -> int:
         "embedder", "phase_s", "faces_per_sec", "sec_per_batch", "stages_ms",
         "device_busy_share")}
         for p in ("serve", "serve_facenet")} | {"card": card}), flush=True)
+    mesh_launches, mesh_held, mesh_stats = mesh(dev, frames, pipes["serve"], serve_enroll.rows,
+                                                card)
+    launches.update(mesh_launches)
+    held.update(mesh_held)
+    torch.cuda.empty_cache()
+    print(f"mesh: phase {mesh_stats['phase_s']:.1f} s; launches {mesh_launches}", flush=True)
     t0 = time.perf_counter()
     launches["fold"] = fold(pipes, frames, card)[1]
     del pipes["serve_facenet"]

@@ -13,6 +13,13 @@ The JAX package's subcommands, flags and defaults, plus one top-level
 their flags but exit 2 with a line that names what they wait for.
 Checkpoints and outputs go under ``$FACEREC_ROOT/outputs`` (default: the
 repository).
+
+``train``, ``evaluate``, ``cv`` and ``hyperopt`` first call
+``parallel.mesh.initialize_distributed``: under ``torchrun`` (with
+``FACEREC_COORDINATOR=auto``) or with ``FACEREC_COORDINATOR``,
+``FACEREC_NUM_PROCESSES`` and ``FACEREC_PROCESS_ID`` set, every rank joins
+one process group and the command runs over all of them; with none set
+it runs in this process alone.
 """
 
 from __future__ import annotations
@@ -162,6 +169,11 @@ def main(argv: list[str] | None = None) -> int:
     args = build_parser().parse_args(argv)
     cmd = args.command or "interactive"
     dev = args.device
+
+    if cmd in ("train", "evaluate", "cv", "hyperopt"):
+        from facerec_torch.parallel.mesh import initialize_distributed
+
+        initialize_distributed(device=dev)
 
     if cmd in NOT_PORTED:
         print(f"facerec_torch: '{cmd}' is not ported: {NOT_PORTED[cmd]} (ROADMAP.md section 1)",

@@ -132,9 +132,10 @@ class PreprocessingConfig(_DictMixin):
 
 @dataclass(frozen=True)
 class MeshConfig(_DictMixin):
-    """Device-mesh layout. The port trains on one device: a ``data_parallel``
-    or ``model_parallel`` above 1 is refused by the trainer (the mesh path
-    is ROADMAP work); -1, "every device", means the one device here."""
+    """Process-mesh layout (``parallel/mesh.py``): ``data_parallel`` ranks
+    each take a slice of every batch, ``model_parallel`` ranks each hold a
+    row range of the serve step's gallery; -1 takes every rank that
+    ``model_parallel`` leaves."""
 
     data_axis: str = "data"
     model_axis: str = "model"

@@ -1,7 +1,9 @@
 """Device input pipeline (counterpart of ``facerec_tpu/data/pipeline.py``):
 a background thread loads the next batches while the card computes, copies
 each through pinned host memory to the card on a side stream, and the
-consumer's stream waits for that copy before it uses the batch.
+consumer's stream waits for that copy before it uses the batch. With a
+mesh every rank reads the same global batch and keeps its data slice
+(``local_slice``), so a ``(dp, 1)`` run sees the data one process sees.
 """
 
 from __future__ import annotations
@@ -14,6 +16,32 @@ import numpy as np
 import torch
 
 from facerec_torch import resolve_device
+from facerec_torch.parallel.mesh import Mesh
+
+
+def local_slice(batch: dict, process_index: int | None = None,
+                process_count: int | None = None) -> dict:
+    """The contiguous rows of ``batch`` that belong to one of
+    ``process_count`` ranks (default: this rank of the process group); the
+    identity for one rank."""
+    live = torch.distributed.is_available() and torch.distributed.is_initialized()
+    pc = process_count if process_count is not None else (
+        torch.distributed.get_world_size() if live else 1)
+    if pc <= 1:
+        return batch
+    pi = process_index if process_index is not None else torch.distributed.get_rank()
+
+    def _sl(x):
+        per = x.shape[0] // pc
+        return x[pi * per:(pi + 1) * per]
+
+    return {k: _sl(v) for k, v in batch.items()}
+
+
+def shard_put(batch: dict, mesh: Mesh) -> dict[str, torch.Tensor]:
+    """This rank's slice of a batch (numpy arrays), on the mesh's device."""
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(mesh.device)
+            for k, v in batch.items()}
 
 
 def _put(q: queue.Queue, item, stop: threading.Event) -> bool:
@@ -31,12 +59,16 @@ def prefetch_to_device(
     it: Iterable[dict],
     device: str | torch.device | None = None,
     depth: int = 2,
+    mesh: Mesh | None = None,
 ) -> Iterator[dict[str, torch.Tensor]]:
     """Iterate ``it`` (dicts of numpy arrays) on a background thread,
     keeping up to ``depth`` batches on ``device`` (default: the CUDA card)
-    ahead of the consumer. An error raised by ``it`` re-raises in the
-    consumer; a consumer that stops early stops the thread."""
-    dev = resolve_device(device)
+    ahead of the consumer. With ``mesh`` each batch is cut to this rank's
+    data slice and put on the mesh's device. An error raised by ``it``
+    re-raises in the consumer; a consumer that stops early stops the
+    thread."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    data = (mesh.index(mesh.data_axis), mesh.size(mesh.data_axis)) if mesh is not None else None
     stream = torch.cuda.Stream(dev) if dev.type == "cuda" else None
     q: queue.Queue = queue.Queue(maxsize=depth)
     end = object()
@@ -46,6 +78,8 @@ def prefetch_to_device(
     def _producer():
         try:
             for batch in it:
+                if data is not None:
+                    batch = local_slice(batch, *data)
                 host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
                 if stream is None:
                     item = (host, None)

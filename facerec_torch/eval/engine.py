@@ -1,7 +1,7 @@
 """Evaluation engine: ``evaluate_model`` and ``predict_image`` (counterpart of
 ``facerec_tpu/eval/engine.py``).
 
-Batched inference over a test split on one device, the metric set (accuracy,
+Batched inference over a test split, the metric set (accuracy,
 weighted precision/recall/F1, ROC-AUC, PR-AUC, calibration, per-class and
 confusion), the ROC/PR curve CSVs, ``{type}_results.json`` and the appending
 ``experiment_summary.json``, as the JAX engine writes them. ArcFace is
@@ -20,6 +20,12 @@ PR-AUC are taken on the negated distance, and ``roc_curve.csv``,
 written. Every other type, ensembles included, takes the classifier branch.
 ``predict_image`` refuses a siamese model, which has no classes (the JAX
 one cannot run it either).
+
+Over a mesh of several ranks (default: every rank of the process group on
+the data axis, as the JAX engine's ``build_mesh()``) each rank runs its
+slice of every batch; the probabilities (distances), labels and masks are
+gathered in batch order, so every rank computes the metrics of one
+process, and rank 0 alone writes the files. The latency is each rank's own.
 """
 
 from __future__ import annotations
@@ -34,7 +40,9 @@ import numpy as np
 import torch
 
 from facerec_torch import resolve_device
-from facerec_torch.config import CHECKPOINTS_DIR, OUTPUTS_DIR, PROC_DATA_DIR, EvalConfig, logger
+from facerec_torch.config import (
+    CHECKPOINTS_DIR, OUTPUTS_DIR, PROC_DATA_DIR, EvalConfig, MeshConfig, logger,
+)
 from facerec_torch.data.datasets import (
     ClassificationBatcher,
     ImageFolderIndex,
@@ -45,6 +53,8 @@ from facerec_torch.data.datasets import (
 from facerec_torch.data.pipeline import prefetch_to_device
 from facerec_torch.eval import metrics as M
 from facerec_torch.models import get_model
+from facerec_torch.parallel.collectives import all_gather
+from facerec_torch.parallel.mesh import Mesh, build_mesh
 from facerec_torch.train.checkpoints import load_checkpoint
 from facerec_torch.train.steps import _autocast
 
@@ -122,6 +132,7 @@ def evaluate_model(
     return_predictions: bool = False,
     device: str | torch.device | None = None,
     model: torch.nn.Module | None = None,
+    mesh: Mesh | None = None,
 ) -> dict[str, Any]:
     """Evaluate the ``best`` (else ``final``) checkpoint of
     ``config.model_name`` under ``checkpoints_root``, or ``model`` when one
@@ -131,8 +142,11 @@ def evaluate_model(
     ``return_predictions`` keeps the per-image arrays (``_predictions``:
     labels, argmax, probabilities in the split's sorted order; for siamese
     pair labels, predictions and distances in the fixed pairs' order) in
-    the returned dict; they are never written to JSON."""
-    dev = resolve_device(device)
+    the returned dict; they are never written to JSON. ``mesh`` (default:
+    every rank of the process group on the data axis) runs the batches
+    data-parallel; the results are the same on every rank."""
+    mesh = mesh if mesh is not None else build_mesh(MeshConfig(), device=device)
+    dev = mesh.device
     checkpoints_root = Path(checkpoints_root or CHECKPOINTS_DIR)
     outputs_root = Path(outputs_root or OUTPUTS_DIR)
     test_dir = discover_test_dir(dataset_path)
@@ -146,42 +160,51 @@ def evaluate_model(
     else:
         model = model.to(dev).eval()
     out_dir = outputs_root / model_name
-    out_dir.mkdir(parents=True, exist_ok=True)
+    if mesh.is_primary:
+        out_dir.mkdir(parents=True, exist_ok=True)
 
     if model_type == "siamese":
-        results = _evaluate_siamese(model, index, config, dev, out_dir)
+        results = _evaluate_siamese(model, index, config, dev, out_dir, mesh)
     else:
-        results = _evaluate_classifier(model, index, config, dev, out_dir, model_type)
+        results = _evaluate_classifier(model, index, config, dev, out_dir, model_type, mesh)
     predictions = results.pop("_predictions")
     results["model_name"] = model_name
     results["model_type"] = model_type
     results["test_dir"] = str(test_dir)
     results["num_test_images"] = len(index)
-    (out_dir / f"{model_type}_results.json").write_text(json.dumps(results, indent=2, default=str))
-    _write_experiment_summary(out_dir, results)
-    logger.info("[eval %s] acc=%.4f f1=%.4f roc_auc=%s %.2fms/batch",
-                model_name, results["accuracy"], results["f1"],
-                f"{results.get('roc_auc', float('nan')):.4f}",
-                results["avg_inference_time_ms"])
+    if mesh.is_primary:
+        (out_dir / f"{model_type}_results.json").write_text(
+            json.dumps(results, indent=2, default=str))
+        _write_experiment_summary(out_dir, results)
+        logger.info("[eval %s] acc=%.4f f1=%.4f roc_auc=%s %.2fms/batch",
+                    model_name, results["accuracy"], results["f1"],
+                    f"{results.get('roc_auc', float('nan')):.4f}",
+                    results["avg_inference_time_ms"])
+    mesh.barrier()
     if return_predictions:
         results["_predictions"] = predictions
     return results
 
 
+def _gathered(mesh: Mesh, *tensors: torch.Tensor) -> list[np.ndarray]:
+    """Each tensor's rows of every data rank, in batch order, on the host."""
+    return [all_gather(t, mesh, mesh.data_axis).cpu().numpy() for t in tensors]
+
+
 def _evaluate_classifier(model, index, config: EvalConfig, dev: torch.device, out_dir: Path,
-                         model_type: str) -> dict[str, Any]:
+                         model_type: str, mesh: Mesh) -> dict[str, Any]:
     apply_fn = _classifier_fn(model, model_type, config.compute_dtype, dev)
     # the PIL batcher in file order, as the JAX engine reads its test split
     batcher = ClassificationBatcher(index, config.batch_size, config.image_size, shuffle=False)
     all_probs, all_labels, kept = [], [], []
     n_batches = 0
-    for batch in prefetch_to_device(batcher.epoch(0), dev):
+    for batch in prefetch_to_device(batcher.epoch(0), dev, mesh=mesh):
         if len(kept) < 8:
             kept.append(batch)
-        probs = apply_fn(batch).cpu().numpy()
-        m = batch["mask"].cpu().numpy().astype(bool)
+        probs, labels, m = _gathered(mesh, apply_fn(batch), batch["label"], batch["mask"])
+        m = m.astype(bool)
         all_probs.append(probs[m])
-        all_labels.append(batch["label"].cpu().numpy()[m])
+        all_labels.append(labels[m])
         n_batches += 1
     probs = np.concatenate(all_probs)
     y = np.concatenate(all_labels)
@@ -204,12 +227,13 @@ def _evaluate_classifier(model, index, config: EvalConfig, dev: torch.device, ou
         "confusion": M.enhanced_confusion_matrix(y, yhat, index.class_names),
         "_predictions": {"y": y, "yhat": yhat, "probs": probs},
     }
-    _write_curves_csv(out_dir, y, probs, index.class_names)
+    if mesh.is_primary:
+        _write_curves_csv(out_dir, y, probs, index.class_names)
     return results
 
 
 def _evaluate_siamese(model, index, config: EvalConfig, dev: torch.device,
-                      out_dir: Path) -> dict[str, Any]:
+                      out_dir: Path, mesh: Mesh) -> dict[str, Any]:
     @torch.no_grad()
     def apply_fn(batch: dict) -> torch.Tensor:
         with _autocast(dev, config.compute_dtype):
@@ -219,14 +243,14 @@ def _evaluate_siamese(model, index, config: EvalConfig, dev: torch.device,
     batcher = SiamesePairBatcher(index, config.batch_size, config.image_size, fixed_pairs=True)
     dists, ys, las, lbs, kept = [], [], [], [], []
     n_batches = 0
-    for batch in prefetch_to_device(batcher.epoch(0), dev):
+    for batch in prefetch_to_device(batcher.epoch(0), dev, mesh=mesh):
         if len(kept) < 8:
             kept.append(batch)
-        d = apply_fn(batch).cpu().numpy()
-        m = batch["mask"].cpu().numpy().astype(bool)
-        dists.append(d[m])
-        for acc, key in ((ys, "pair_label"), (las, "label_a"), (lbs, "label_b")):
-            acc.append(batch[key].cpu().numpy()[m])
+        d, y, la, lb, m = _gathered(mesh, apply_fn(batch), batch["pair_label"], batch["label_a"],
+                                    batch["label_b"], batch["mask"])
+        m = m.astype(bool)
+        for acc, v in ((dists, d), (ys, y), (las, la), (lbs, lb)):
+            acc.append(v[m])
         n_batches += 1
     ms_per_batch = _latency_ms(apply_fn, kept, dev)
     dist, y, la, lb = (np.concatenate(v) for v in (dists, ys, las, lbs))
@@ -250,20 +274,23 @@ def _evaluate_siamese(model, index, config: EvalConfig, dev: torch.device,
         "distance_threshold": threshold,
         "_predictions": {"y": y, "yhat": yhat, "dist": dist},
     }
-    with (out_dir / "roc_curve.csv").open("w", newline="") as f:
-        w = csv.writer(f)
-        w.writerow(["fpr", "tpr"])
-        w.writerows(zip(fpr.tolist(), tpr.tolist()))
+    if mesh.is_primary:
+        with (out_dir / "roc_curve.csv").open("w", newline="") as f:
+            w = csv.writer(f)
+            w.writerow(["fpr", "tpr"])
+            w.writerows(zip(fpr.tolist(), tpr.tolist()))
     results["per_person_accuracy"] = _write_person_matrix(out_dir, index.class_names, dist, y,
-                                                          la, lb, threshold)
+                                                          la, lb, threshold, mesh.is_primary)
     return results
 
 
 def _write_person_matrix(out_dir: Path, names: list[str], dist: np.ndarray, y: np.ndarray,
-                         la: np.ndarray, lb: np.ndarray, threshold: float) -> dict[str, float]:
+                         la: np.ndarray, lb: np.ndarray, threshold: float,
+                         write: bool = True) -> dict[str, float]:
     """The person-by-person recognition rate (``person_recognition_matrix.csv``:
     the share of the pairs of persons a and b decided right) and each
-    person's accuracy over all their pairs (``per_person_accuracy.csv``)."""
+    person's accuracy over all their pairs (``per_person_accuracy.csv``),
+    written when ``write``."""
     n = len(names)
     correct = np.zeros((n, n))
     total = np.zeros((n, n))
@@ -275,13 +302,15 @@ def _write_person_matrix(out_dir: Path, names: list[str], dist: np.ndarray, y: n
         total[b, a] += 1
     with np.errstate(invalid="ignore"):
         rate = np.where(total > 0, correct / np.maximum(total, 1), np.nan)
+    per_person = {names[i]: float(np.nansum(correct[i]) / max(np.nansum(total[i]), 1))
+                  for i in range(n)}
+    if not write:
+        return per_person
     with (out_dir / "person_recognition_matrix.csv").open("w", newline="") as f:
         w = csv.writer(f)
         w.writerow([""] + names)
         for i, nm in enumerate(names):
             w.writerow([nm] + [f"{rate[i, j]:.3f}" if total[i, j] else "" for j in range(n)])
-    per_person = {names[i]: float(np.nansum(correct[i]) / max(np.nansum(total[i]), 1))
-                  for i in range(n)}
     with (out_dir / "per_person_accuracy.csv").open("w", newline="") as f:
         w = csv.writer(f)
         w.writerow(["person", "accuracy"])

@@ -21,18 +21,33 @@ import torch.nn as nn
 from facerec_torch import resolve_device
 from facerec_torch.models.resnet import BatchNorm, ResNet18
 from facerec_torch.ops.arcface import arc_margin_logits, cosine_logits, l2_normalize
+from facerec_torch.parallel.mesh import sharded_data_mesh
 
 
 def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
-            shape: tuple[int, ...] | None = None) -> torch.Tensor:
+            shape: tuple[int, ...] | None = None, blocks: int = 1) -> torch.Tensor:
     """Flax's ``nn.Dropout`` in train mode: keep each value with probability
     1 - rate and scale it by 1 / (1 - rate), the draws from ``generator``.
-    ``shape`` draws one mask of that shape, broadcast over ``x``."""
+    ``shape`` draws one mask of that shape, broadcast over ``x``.
+
+    Inside a data-parallel step (``parallel.mesh.data_parallel``) ``x`` is
+    this rank's rows of the global batch: the mask of the global batch is
+    drawn (every rank's generator is in the same state) and this rank's
+    rows are kept, so the step draws what one process would. ``blocks``:
+    ``x`` stacks that many batches along dim 0 (the siamese twin pass over
+    ``cat([xa, xb])``), each sliced on its own."""
     if rate == 0.0:
         return x
     if generator is None:
         raise ValueError("dropout in train mode needs a generator")
-    keep = torch.rand(shape or x.shape, generator=generator, device=x.device) >= rate
+    mesh = sharded_data_mesh()
+    if shape is None and mesh is not None:
+        n = x.shape[0] // blocks
+        full = torch.rand((blocks, mesh.size(mesh.data_axis), n, *x.shape[1:]),
+                          generator=generator, device=x.device)
+        keep = full[:, mesh.index(mesh.data_axis)].reshape(x.shape) >= rate
+    else:
+        keep = torch.rand(shape or x.shape, generator=generator, device=x.device) >= rate
     return torch.where(keep, x / (1.0 - rate), 0.0)
 
 

@@ -8,6 +8,9 @@ Public inputs are NHWC like the JAX model; inside, the tensor is NCHW in
 In training mode (``module.train()``) BatchNorm normalises with the
 batch's statistics and updates the running ones as Flax's ``BatchNorm``
 does (``BatchNorm`` below); in eval mode it uses the running statistics.
+Inside a data-parallel step (``parallel.mesh.data_parallel``) the batch is
+the global one: the statistics are summed over the data ranks, as GSPMD
+computes a Flax BatchNorm's over the sharded batch.
 """
 
 from __future__ import annotations
@@ -15,6 +18,9 @@ from __future__ import annotations
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
+
+from facerec_torch.parallel.collectives import psum
+from facerec_torch.parallel.mesh import sharded_data_mesh
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -32,16 +38,41 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return F.batch_norm(x, self.running_mean, self.running_var, self.weight, self.bias,
                                 False, 0.0, self.eps)
-        y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
-                                                  True, 0.0, self.eps)
+        mesh = sharded_data_mesh()
+        if mesh is not None:
+            y, mean, var = self._global_batch_norm(x, mesh)
+        else:
+            y, mean, invstd = torch.native_batch_norm(x, self.weight, self.bias, None, None,
+                                                      True, 0.0, self.eps)
         with torch.no_grad():
-            # the kernel returns 1/sqrt(var + eps) of the biased variance
             dt = self.running_mean.dtype
-            var = invstd.to(dt).pow(-2).sub_(self.eps)
+            if mesh is None:
+                # the kernel returns 1/sqrt(var + eps) of the biased variance
+                var = invstd.to(dt).pow(-2).sub_(self.eps)
+            var = var.to(dt)
             self.running_mean.lerp_(mean.to(dt), 1.0 - self.MOMENTUM)
             self.running_var.lerp_(var, 1.0 - self.MOMENTUM)
             self.num_batches_tracked.add_(1)
         return y
+
+    def _global_batch_norm(self, x: torch.Tensor, mesh) -> tuple[torch.Tensor, ...]:
+        """Train mode over the global batch of a data-parallel step, in f32:
+        the mean from the sum over the data ranks, then the biased variance
+        from the sum of squares about that mean over the data ranks, each
+        sum with its gradient. Two passes, as the native kernel's variance:
+        Flax's one-pass E[x^2] - E[x]^2 cancels where the mean is large
+        against the spread. Every rank's slice has the same shape, so the
+        count is the local one times the data size."""
+        dims = [0, *range(2, x.ndim)]
+        shape = [1, -1] + [1] * (x.ndim - 2)
+        count = x.numel() // x.shape[1] * mesh.size(mesh.data_axis)
+        xf = x.float()
+        mean = psum(xf.sum(dims), mesh, mesh.data_axis) / count
+        centered = xf - mean.view(shape)
+        var = psum((centered * centered).sum(dims), mesh, mesh.data_axis) / count
+        y = centered * torch.rsqrt(var + self.eps).view(shape)
+        y = y * self.weight.view(shape) + self.bias.view(shape)
+        return y.to(x.dtype), mean, var
 
 
 class BasicBlock(nn.Module):

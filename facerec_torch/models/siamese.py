@@ -49,8 +49,11 @@ class SiameseNet(nn.Module):
         self.fc3 = nn.Linear(512, embedding_dim)
         self.dropout_rates = (0.3, 0.2)
 
-    def embed(self, x_nhwc: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        """[N, S, S, 3] -> unit [N, 256] embeddings."""
+    def embed(self, x_nhwc: torch.Tensor, generator: torch.Generator | None = None,
+              blocks: int = 1) -> torch.Tensor:
+        """[N, S, S, 3] -> unit [N, 256] embeddings; ``blocks``: the number
+        of batches stacked in ``x`` (2 for the twin pass), which a
+        data-parallel step's dropout slices apart."""
         x = x_nhwc.permute(0, 3, 1, 2)
         for i in range(len(CONV_SPECS)):
             x = F.relu(getattr(self, f"conv_bn{i}")(getattr(self, f"conv{i}")(x)))
@@ -58,14 +61,14 @@ class SiameseNet(nn.Module):
                 x = F.max_pool2d(x, 2, 2)
         x = _adaptive_avg_pool(x, POOL_HW).permute(0, 2, 3, 1).flatten(1)  # NHWC order
         if self.training:
-            x = dropout(x, self.dropout_rates[0], generator)
+            x = dropout(x, self.dropout_rates[0], generator, blocks=blocks)
         x = F.relu(self.fc_bn1(self.fc1(x)))
         if self.training:
-            x = dropout(x, self.dropout_rates[1], generator)
+            x = dropout(x, self.dropout_rates[1], generator, blocks=blocks)
         x = F.relu(self.fc_bn2(self.fc2(x)))
         return l2_normalize(self.fc3(x))
 
     def forward(self, xa: torch.Tensor, xb: torch.Tensor,
                 generator: torch.Generator | None = None) -> tuple[torch.Tensor, torch.Tensor]:
-        both = self.embed(torch.cat([xa, xb]), generator)
+        both = self.embed(torch.cat([xa, xb]), generator, blocks=2)
         return both[: xa.shape[0]], both[xa.shape[0]:]

@@ -35,6 +35,7 @@ PHASES = (
     ("serve_1048576", "serve_1048576: {"),
     ("serve_precise", "serve_precise: {"),
     ("serve_facenet", "serve_facenet: {"),
+    ("mesh", "mesh: phase"),
     ("fold", "fold: phase"),
     ("train_eval_zoo_tune", "tune: phase"),
     ("prep_and_detector", "prep + detector:"),

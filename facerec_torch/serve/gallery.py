@@ -10,6 +10,15 @@ one JPEG per reference face), so a gallery saved by either package loads in
 the other. The port updates the matrix in place. Normalisation is always
 in f32: on the host for ``add``/``add_many``, on the device for
 ``add_many_device``.
+
+With a mesh whose ``model`` axis has ``mp`` ranks, each rank holds only its
+row range ``[m R, (m + 1) R)`` of the ``capacity = mp R`` rows on its card
+(``embeddings`` is that shard); the names and the count are global and
+replicated on every rank. The writes keep the one-process layout: each
+rank writes the rows of an enrolment that fall in its range, ``remove``
+shifts the tail down across the shard boundaries (each shard's first row
+moves to the previous shard's last slot, ``ppermute_ring``), and ``save``
+gathers the valid rows to rank 0, which writes the one-process file.
 """
 
 from __future__ import annotations
@@ -22,6 +31,8 @@ import torch
 
 from facerec_torch import resolve_device
 from facerec_torch.config import FACE_REFERENCES_DIR
+from facerec_torch.parallel.collectives import all_gather, ppermute_ring
+from facerec_torch.parallel.mesh import Mesh, gallery_sharding
 
 
 def _dtype(dtype: torch.dtype | str) -> torch.dtype:
@@ -31,12 +42,19 @@ def _dtype(dtype: torch.dtype | str) -> torch.dtype:
 class GalleryStore:
     def __init__(self, capacity: int = 1024, dim: int = 512,
                  dtype: torch.dtype | str = torch.float32,
-                 device: str | torch.device | None = None):
-        self.device = resolve_device(device)
+                 device: str | torch.device | None = None, mesh: Mesh | None = None):
+        """``mesh``: hold this rank's row range of the ``model`` axis, on the
+        mesh's device (``device`` is then not read)."""
+        self.mesh = mesh if mesh is not None and mesh.size(mesh.model_axis) > 1 else None
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.capacity = capacity
         self.dim = dim
         self.dtype = _dtype(dtype)
-        self.embeddings = torch.zeros((capacity, dim), dtype=self.dtype, device=self.device)
+        rows = (gallery_sharding(self.mesh, capacity, self.mesh.model_axis)
+                if self.mesh is not None else slice(0, capacity))
+        self.lo, self.hi = rows.start, rows.stop
+        self.embeddings = torch.zeros((self.hi - self.lo, dim), dtype=self.dtype,
+                                      device=self.device)
         self.names: list[str] = []
         self._count_dev = torch.zeros((), dtype=torch.int32, device=self.device)
 
@@ -46,11 +64,32 @@ class GalleryStore:
 
     @property
     def count_device(self) -> torch.Tensor:
-        """Device-resident valid-prefix length (int32 scalar)."""
+        """Device-resident valid-prefix length of the whole gallery (int32
+        scalar)."""
         return self._count_dev
+
+    @property
+    def shard_rows(self) -> int:
+        """Rows of each shard (the capacity on one rank)."""
+        return self.hi - self.lo
+
+    @property
+    def local_count(self) -> int:
+        """Valid rows of this rank's shard."""
+        return min(max(self.count - self.lo, 0), self.shard_rows)
+
+    def local_count_device(self) -> torch.Tensor:
+        """``local_count`` computed on the device from ``count_device`` (no
+        host read)."""
+        return torch.clamp(self._count_dev - self.lo, 0, self.shard_rows)
 
     def _set_count(self) -> None:
         self._count_dev.fill_(self.count)
+
+    def _span(self, start: int, n: int) -> tuple[int, int]:
+        """The part ``[a, b)`` of the global rows ``[start, start + n)`` that
+        this rank holds (none when ``a >= b``)."""
+        return max(start, self.lo), min(start + n, self.hi)
 
     def add(self, name: str, embedding: np.ndarray) -> int:
         if self.count >= self.capacity:
@@ -59,7 +98,9 @@ class GalleryStore:
         if emb.shape[0] != self.dim:
             raise ValueError(f"expected dim {self.dim}, got {emb.shape[0]}")
         emb = emb / max(np.linalg.norm(emb), 1e-12)
-        self.embeddings[self.count] = torch.from_numpy(emb).to(self.device, self.dtype)
+        if self.lo <= self.count < self.hi:
+            self.embeddings[self.count - self.lo] = torch.from_numpy(emb).to(self.device,
+                                                                             self.dtype)
         self.names.append(name)
         self._set_count()
         return self.count - 1
@@ -76,8 +117,10 @@ class GalleryStore:
                 f"gallery full: {self.count}+{len(names)} > capacity {self.capacity}")
         embs = embs / np.maximum(np.linalg.norm(embs, axis=1, keepdims=True), 1e-12)
         start = self.count
-        self.embeddings[start:start + len(names)] = torch.from_numpy(embs).to(
-            self.device, self.dtype)
+        a, b = self._span(start, len(names))
+        if a < b:
+            self.embeddings[a - self.lo:b - self.lo] = torch.from_numpy(
+                embs[a - start:b - start]).to(self.device, self.dtype)
         self.names.extend(str(n) for n in names)
         self._set_count()
         return list(range(start, self.count))
@@ -86,7 +129,8 @@ class GalleryStore:
         """Bulk enrollment from embeddings already on the device (the embed
         stage's own output, or a generated gallery): normalised in f32 on
         the device and spliced into the valid prefix, with no host copy of
-        the rows. At 524,288 x 512 that saves a 1 GiB upload."""
+        the rows. At 524,288 x 512 that saves a 1 GiB upload. With a mesh
+        every rank passes the same rows and keeps those of its range."""
         if not names:
             return []
         if embeddings.ndim != 2 or tuple(embeddings.shape) != (len(names), self.dim):
@@ -95,22 +139,34 @@ class GalleryStore:
         if self.count + len(names) > self.capacity:
             raise ValueError(
                 f"gallery full: {self.count}+{len(names)} > capacity {self.capacity}")
-        emb = embeddings.to(device=self.device, dtype=torch.float32)
-        emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
         start = self.count
-        self.embeddings[start:start + len(names)] = emb.to(self.dtype)
+        a, b = self._span(start, len(names))
+        if a < b:
+            emb = embeddings[a - start:b - start].to(device=self.device, dtype=torch.float32)
+            emb = emb / torch.clamp(torch.linalg.vector_norm(emb, dim=1, keepdim=True), min=1e-12)
+            self.embeddings[a - self.lo:b - self.lo] = emb.to(self.dtype)
         self.names.extend(str(n) for n in names)
         self._set_count()
         return list(range(start, self.count))
 
     def remove(self, name: str) -> bool:
+        """Drop ``name``'s row and shift the rows after it down one slot.
+        With a mesh every rank of the ``model`` axis calls it together."""
         if name not in self.names:
             return False
         i = self.names.index(name)
         c = self.count
-        if i < c - 1:  # compact: shift the tail down one slot
-            self.embeddings[i:c - 1] = self.embeddings[i + 1:c].clone()
-        self.embeddings[c - 1] = 0
+        lo, hi = self.lo, self.hi
+        # the next shard's first row, which slides into this shard's last slot
+        incoming = (ppermute_ring(self.embeddings[0].clone(), self.mesh, self.mesh.model_axis,
+                                  shift=-1) if self.mesh is not None else None)
+        a, b = max(i, lo), min(c - 1, hi - 1)  # rows whose source lies in this shard
+        if a < b:  # compact: shift the tail down one slot
+            self.embeddings[a - lo:b - lo] = self.embeddings[a + 1 - lo:b + 1 - lo].clone()
+        if incoming is not None and max(i, lo) <= hi - 1 < c - 1:
+            self.embeddings[hi - 1 - lo] = incoming
+        if lo <= c - 1 < hi:
+            self.embeddings[c - 1 - lo] = 0
         self.names.pop(i)
         self._set_count()
         return True
@@ -132,34 +188,44 @@ class GalleryStore:
     # -- persistence (reference face_references/ contract) ---------------------
     def save(self, directory: str | Path | None = None,
              images: dict[str, np.ndarray] | None = None) -> Path:
+        """Write the gallery (with a mesh: every rank calls it, the rows are
+        gathered and rank 0 writes)."""
         d = Path(directory or FACE_REFERENCES_DIR)
-        d.mkdir(parents=True, exist_ok=True)
-        host = self.embeddings[: self.count].float().cpu().numpy()
-        refs = {n: host[i].copy() for i, n in enumerate(self.names)}
-        with (d / "face_references.pkl").open("wb") as f:
-            pickle.dump(refs, f)
-        if images:
-            from PIL import Image
+        rows = self.embeddings
+        if self.mesh is not None:
+            rows = all_gather(rows, self.mesh, self.mesh.model_axis)
+        if self.mesh is None or self.mesh.is_primary:
+            d.mkdir(parents=True, exist_ok=True)
+            host = rows[: self.count].float().cpu().numpy()
+            refs = {n: host[i].copy() for i, n in enumerate(self.names)}
+            with (d / "face_references.pkl").open("wb") as f:
+                pickle.dump(refs, f)
+            if images:
+                from PIL import Image
 
-            for n, img in images.items():
-                Image.fromarray(np.asarray(img, np.uint8)).save(d / f"{n}.jpg")
+                for n, img in images.items():
+                    Image.fromarray(np.asarray(img, np.uint8)).save(d / f"{n}.jpg")
+        if self.mesh is not None:
+            self.mesh.barrier()  # the file exists before any rank loads it
         return d
 
     @classmethod
     def load(cls, directory: str | Path | None = None, capacity: int = 1024,
              dtype: torch.dtype | str = torch.float32,
-             device: str | torch.device | None = None) -> "GalleryStore":
+             device: str | torch.device | None = None,
+             mesh: Mesh | None = None) -> "GalleryStore":
         """Load a gallery this package or ``facerec_tpu`` saved (the pickle
         is unpickled: load only galleries you wrote)."""
         d = Path(directory or FACE_REFERENCES_DIR)
         pkl = d / "face_references.pkl"
         if not pkl.exists():
-            return cls(capacity=capacity, dtype=dtype, device=device)
+            return cls(capacity=capacity, dtype=dtype, device=device, mesh=mesh)
         with pkl.open("rb") as f:
             refs = pickle.load(f)
         if not refs:
-            return cls(capacity=capacity, dtype=dtype, device=device)
+            return cls(capacity=capacity, dtype=dtype, device=device, mesh=mesh)
         rows = [np.asarray(e, np.float32).reshape(-1) for e in refs.values()]
-        store = cls(capacity=capacity, dim=rows[0].shape[0], dtype=dtype, device=device)
+        store = cls(capacity=capacity, dim=rows[0].shape[0], dtype=dtype, device=device,
+                    mesh=mesh)
         store.add_many([str(n) for n in refs], np.stack(rows))
         return store

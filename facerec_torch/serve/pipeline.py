@@ -12,6 +12,17 @@ returns only once detection is done.
 
 The demo's path, ``packed_step``, packs every field the host needs into one
 [B, F, 19] f32 tensor, so a frame costs one device-to-host copy.
+
+With a ``(data, model)`` mesh (one rank per card, ``parallel/mesh.py``),
+as the JAX step's: the frames of a batch are split over ``data``, each
+rank uploading and running its slice (detect, the align with its rotation
+kernel, embed; every ``model`` rank of a data index computes the same
+slice), and the gallery rows are split over ``model``. Each rank then
+runs the top-k kernel on its own rows with its own valid count, computed
+on the device from the global count (no host read), and the shards'
+winners are merged exactly (``global_topk_merge``); an index is ``shard *
+R + local``. ``process``, ``identify`` and the benchmarks answer for this
+rank's frames: rows ``[d B / dp, (d + 1) B / dp)`` of the batch.
 """
 
 from __future__ import annotations
@@ -30,6 +41,8 @@ from facerec_torch.ops.arcface import l2_normalize
 from facerec_torch.ops.gallery import cosine_to_euclidean, gallery_topk
 from facerec_torch.ops.image import align_and_crop_batched, bbox_with_margin
 from facerec_torch.ops.warp_fast import align_and_crop_fast_batched
+from facerec_torch.parallel.collectives import global_topk_merge
+from facerec_torch.parallel.mesh import Mesh, batch_sharding
 from facerec_torch.serve.gallery import GalleryStore
 
 DEFAULT_LANDMARKS = [[40.0, 60.0], [120.0, 60.0], [80.0, 90.0], [50.0, 120.0], [110.0, 120.0]]
@@ -55,12 +68,17 @@ class FacePipeline:
     (``models.arcface.build_embedder``). Both must live on ``device``
     (default: the CUDA card; with no card the constructor raises).
     ``precise_align``: align with the exact per-pixel gather warp on f32
-    frames (f32 crops) instead of the fast path and its rotation kernel."""
+    frames (f32 crops) instead of the fast path and its rotation kernel.
+    ``mesh``: the ``(data, model)`` mesh the step runs over (every rank of
+    it builds the pipeline and calls the same methods); the pipeline lives
+    on the mesh's device, where the detector and the embedder must be."""
 
     def __init__(self, config: ServeConfig, frame_hw: tuple[int, int], detector: MTCNN,
                  embedder: nn.Module, embed_dim: int = 512, face_margin: float = 0.0,
-                 device: str | torch.device | None = None, precise_align: bool = False):
-        self.device = resolve_device(device)
+                 device: str | torch.device | None = None, precise_align: bool = False,
+                 mesh: Mesh | None = None):
+        self.mesh = mesh
+        self.device = mesh.device if mesh is not None else resolve_device(device)
         self.precise_align = precise_align
         self.config = config
         self.frame_hw = tuple(frame_hw)
@@ -69,14 +87,15 @@ class FacePipeline:
         self.embed_dim = embed_dim
         self.face_margin = face_margin
         self.gallery = GalleryStore(capacity=config.gallery_capacity, dim=embed_dim,
-                                    dtype=config.gallery_dtype, device=self.device)
+                                    dtype=config.gallery_dtype, device=self.device, mesh=mesh)
         s = float(config.embed_size)
         self._default_box = torch.tensor([0.0, 0.0, s, s], device=self.device)
         self._default_lmk = torch.tensor(DEFAULT_LANDMARKS, device=self.device)
 
     @torch.no_grad()
     def step(self, frames: torch.Tensor) -> PipelineResult:
-        """frames: [B, H, W, 3] uint8/float on the pipeline's device."""
+        """frames: [B, H, W, 3] uint8/float on the pipeline's device (with a
+        mesh: this rank's slice of the batch, as ``upload`` gives it)."""
         cfg = self.config
         b, f = frames.shape[0], cfg.max_faces
         d = self.detector.detect(frames)
@@ -98,7 +117,7 @@ class FacePipeline:
         crops = crops.reshape(b * f, cfg.embed_size, cfg.embed_size, 3)
         emb = l2_normalize(self.embedder.embed(crops).float())
         count = self.gallery.count_device
-        scores, idx = gallery_topk(emb, self.gallery.embeddings, count, k=cfg.top_k)
+        scores, idx = self.match(emb)
         dist = cosine_to_euclidean(scores)
         emb = emb.reshape(b, f, -1)
         scores = scores.reshape(b, f, cfg.top_k)
@@ -107,6 +126,18 @@ class FacePipeline:
         is_match = valid & (dist[..., 0] <= cfg.recognition_threshold) & (count > 0)
         return PipelineResult(boxes, d.probs, d.landmarks, valid, emb, scores, idx, dist,
                               is_match)
+
+    def match(self, emb: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """Top-k cosine matches of unit embeddings [N, D] in the gallery:
+        (scores [N, k], global row indices [N, k]). With the rows sharded
+        over ``model``, the top-k kernel on this rank's rows and the exact
+        merge over the shards."""
+        g, k = self.gallery, self.config.top_k
+        if g.mesh is None:
+            return gallery_topk(emb, g.embeddings, g.count_device, k=k)
+        v, i = gallery_topk(emb, g.embeddings, g.local_count_device(), k=k)
+        v, i, shard = global_topk_merge(v, i, k, g.mesh, g.mesh.model_axis)
+        return v, shard * g.shard_rows + i
 
     def align(self, frames: torch.Tensor, boxes: torch.Tensor, landmarks: torch.Tensor
               ) -> torch.Tensor:
@@ -173,15 +204,19 @@ class FacePipeline:
 
     def upload(self, frames: np.ndarray) -> torch.Tensor:
         """Host frames to the device: uint8 travels as uint8 (a quarter of
-        the bytes), anything else as float32."""
+        the bytes), anything else as float32. With a mesh, only this rank's
+        slice of the batch travels."""
         arr = np.asarray(frames)
+        if self.mesh is not None:
+            arr = arr[batch_sharding(self.mesh, len(arr), self.mesh.data_axis)]
         if arr.dtype != np.uint8:
             arr = arr.astype(np.float32, copy=False)
         return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
 
     def process(self, frames: np.ndarray) -> PipelineResult:
-        """frames: [B, H, W, 3] uint8/float RGB -> device results; the gallery
-        and its count stay on the device."""
+        """frames: [B, H, W, 3] uint8/float RGB -> device results (with a
+        mesh, of this rank's slice of the frames); the gallery and its count
+        stay on the device."""
         return self.step(self.upload(frames))
 
     def identify(self, frames: np.ndarray) -> list[list[dict]]:
@@ -222,15 +257,17 @@ class FacePipeline:
         card."""
         self._check_card()
         base = np.ascontiguousarray(np.clip(np.asarray(frames), 0, 255).astype(np.uint8))
+        rows = (slice(0, len(base)) if self.mesh is None
+                else batch_sharding(self.mesh, len(base), self.mesh.data_axis))
         cursor = [0]
 
         def one():
             i = cursor[0]
             cursor[0] += 1
-            base[0, 0, 0, :] = (i & 0xFF, (i >> 8) & 0xFF, 1)
+            base[rows.start, 0, 0, :] = (i & 0xFF, (i >> 8) & 0xFF, 1)
             self.step(self.upload(base))  # pageable: base is read before upload returns
 
-        return self._timed(one, base.shape[0], iters, warmup)
+        return self._timed(one, rows.stop - rows.start, iters, warmup)
 
     def _check_card(self) -> None:
         if self.device.type != "cuda":

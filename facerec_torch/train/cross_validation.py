@@ -9,6 +9,8 @@ val loss after each epoch, ``state.epoch`` set before each epoch for
 ArcFace's progressive margin), each fold's checkpoint, and the per-fold
 results with their mean and std in ``cv_results.json``. Folds load through
 ``ClassificationBatcher`` (PIL) or ``SiamesePairBatcher``, as JAX's do.
+Over a mesh (``config.mesh``, as ``train_model``) every fold trains
+data-parallel; rank 0 names the run directory and writes the files.
 """
 
 from __future__ import annotations
@@ -21,12 +23,13 @@ from typing import Any
 import numpy as np
 import torch
 
-from facerec_torch import resolve_device
 from facerec_torch.config import CHECKPOINTS_DIR, TrainConfig, logger
 from facerec_torch.data.datasets import ClassificationBatcher, ImageFolderIndex, SiamesePairBatcher
 from facerec_torch.models import get_model
+from facerec_torch.parallel.collectives import broadcast_object
+from facerec_torch.parallel.mesh import Mesh, shard_params
 from facerec_torch.train.checkpoints import load_checkpoint, save_checkpoint
-from facerec_torch.train.engine import _run_epoch
+from facerec_torch.train.engine import _quiet, _run_epoch, mesh_for
 from facerec_torch.train.schedulers import get_scheduler
 from facerec_torch.train.state import create_train_state, set_hyperparam
 from facerec_torch.train.steps import make_eval_step, make_train_step
@@ -87,12 +90,16 @@ def run_cross_validation(
     warm_start_model: str | None = None,
     checkpoints_root: str | Path | None = None,
     device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> dict[str, Any]:
     """``n_splits``-fold cross-validation of ``config``'s model over
-    ``dataset_dir/train`` on ``device`` (default: the CUDA card); writes
-    each fold's checkpoint and ``cv_results.json`` under
+    ``dataset_dir/train`` on ``device`` (default: the CUDA card), over
+    ``mesh`` (default: ``config.mesh`` over the process group's ranks);
+    writes each fold's checkpoint and ``cv_results.json`` under
     ``<checkpoints_root>/cv_<type>_<time>`` and returns the summary."""
-    dev = resolve_device(device)
+    mesh = mesh_for(config, device, mesh)
+    dev = mesh.device
+    log = logger.info if mesh.is_primary else _quiet
     ckroot = Path(checkpoints_root or CHECKPOINTS_DIR)
     index = ImageFolderIndex.build(Path(dataset_dir) / "train")
     num_classes = index.num_classes
@@ -100,12 +107,13 @@ def run_cross_validation(
     warm = None
     if warm_start_model:
         warm = load_checkpoint(ckroot / warm_start_model)["model"]  # best, then final
-        logger.info("CV warm-start from %s", warm_start_model)
+        log("CV warm-start from %s", warm_start_model)
 
-    cv_dir = ckroot / f"cv_{config.model_type}_{int(time.time())}"
-    cv_dir.mkdir(parents=True, exist_ok=True)
-    train_step = make_train_step(config.model_type, config.compute_dtype)
-    eval_step = make_eval_step(config.model_type, config.compute_dtype)
+    cv_dir = ckroot / broadcast_object(f"cv_{config.model_type}_{int(time.time())}", mesh)
+    if mesh.is_primary:
+        cv_dir.mkdir(parents=True, exist_ok=True)
+    train_step = make_train_step(config.model_type, config.compute_dtype, mesh)
+    eval_step = make_eval_step(config.model_type, config.compute_dtype, mesh=mesh)
     fold_results = []
     for fold, (tr, va) in enumerate(kfold_indices(len(index), n_splits, seed=42)):
         t0 = time.time()
@@ -117,6 +125,7 @@ def run_cross_validation(
                                    config.model_type, dev)
         if warm is not None:
             model.load_state_dict(warm)
+        shard_params(model, mesh)
         sched = get_scheduler(config.scheduler, config.optimizer.learning_rate, epochs_per_fold)
         lr = sched.step()
         set_hyperparam(state.opt_state, "learning_rate", lr)
@@ -124,16 +133,18 @@ def run_cross_validation(
         best_acc = 0.0
         for epoch in range(epochs_per_fold):
             state.epoch = float(epoch)
-            _run_epoch(train_step, state, tr_b, dev, epoch, True, prefetch=config.prefetch_depth)
+            _run_epoch(train_step, state, tr_b, dev, epoch, True, prefetch=config.prefetch_depth,
+                       mesh=mesh)
             val = _run_epoch(eval_step, state, va_b, dev, epoch, False,
-                             prefetch=config.prefetch_depth)
+                             prefetch=config.prefetch_depth, mesh=mesh)
             best_acc = max(best_acc, val["acc"])
             lr = sched.step(val["loss"])
             set_hyperparam(state.opt_state, "learning_rate", lr)
-        save_checkpoint(cv_dir, f"fold_{fold}", model.state_dict(),
-                        metadata={"fold": fold, "val_acc": best_acc})
+        if mesh.is_primary:
+            save_checkpoint(cv_dir, f"fold_{fold}", model.state_dict(),
+                            metadata={"fold": fold, "val_acc": best_acc})
         fold_results.append({"fold": fold, "val_acc": best_acc, "time_sec": round(time.time() - t0, 1)})
-        logger.info("CV fold %d/%d: val_acc=%.4f", fold + 1, n_splits, best_acc)
+        log("CV fold %d/%d: val_acc=%.4f", fold + 1, n_splits, best_acc)
 
     accs = [f["val_acc"] for f in fold_results]
     summary = {
@@ -145,6 +156,8 @@ def run_cross_validation(
         "std_val_acc": float(np.std(accs)),
         "warm_start": warm_start_model,
     }
-    (cv_dir / "cv_results.json").write_text(json.dumps(summary, indent=2))
-    logger.info("CV done: %.4f +/- %.4f", summary["mean_val_acc"], summary["std_val_acc"])
+    if mesh.is_primary:
+        (cv_dir / "cv_results.json").write_text(json.dumps(summary, indent=2))
+    log("CV done: %.4f +/- %.4f", summary["mean_val_acc"], summary["std_val_acc"])
+    mesh.barrier()
     return summary

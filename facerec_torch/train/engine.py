@@ -1,6 +1,7 @@
 """Training engine: ``train_model`` (counterpart of ``facerec_tpu/train/engine.py``).
 
-One train step per batch on one device, a background input thread that
+One train step per batch on each rank of a process mesh (one rank and
+one device without a launcher), a background input thread that
 keeps the next batches on the card, and per-epoch host control
 (schedulers, early stopping, the two-phase transition) applied through the
 optimizer's hyperparameters. The behaviour follows the JAX engine:
@@ -27,7 +28,17 @@ history carry the same-pair and different-pair accuracies. With
 (initialised from ``seed + 1``, as the JAX engine's probe state is), writes
 ``metrics/lr_finder.json`` and, when its analysis is valid, starts the
 schedule from the suggested rate; the model being trained is untouched by
-it. The JAX engine's mesh is not ported yet (ROADMAP).
+it.
+
+The mesh (``config.mesh``, built by ``parallel.mesh.build_mesh`` over the
+ranks of the process group, or ``mesh=``) is the JAX engine's: the global
+``batch_size`` is split over the data ranks, each of which reads the global
+batch and keeps its slice, and the steps sum what one process would compute
+on the global batch, so every rank sees the same metrics, takes the same
+early-stopping and checkpoint decisions and holds the same parameters
+(``shard_params`` broadcasts rank 0's after every initialisation and
+resume). Only rank 0 writes checkpoints, results and logs; the ranks meet
+at a barrier before ``train_model`` returns, once every file is written.
 """
 
 from __future__ import annotations
@@ -39,13 +50,14 @@ from typing import Any, Callable, Sequence
 import numpy as np
 import torch
 
-from facerec_torch import resolve_device
 from facerec_torch.config import CHECKPOINTS_DIR, TrainConfig, logger
 from facerec_torch.data import native_loader
 from facerec_torch.data.datasets import ClassificationBatcher, ImageFolderIndex, SiamesePairBatcher
 from facerec_torch.data.pipeline import prefetch_to_device
 from facerec_torch.eval.metrics import confusion_matrix, count_parameters
 from facerec_torch.models import get_model
+from facerec_torch.parallel.collectives import all_gather, broadcast_object
+from facerec_torch.parallel.mesh import Mesh, build_mesh, shard_params
 from facerec_torch.train.checkpoints import (
     latest_epoch_checkpoint,
     prune_checkpoints,
@@ -95,14 +107,16 @@ def _classification_batcher(index: ImageFolderIndex, batch_size: int, image_size
 
 
 def _run_epoch(step_fn: Callable, state: TrainState, batcher, device: torch.device, epoch: int,
-               train: bool, max_batches: int = 0, prefetch: int = 2) -> dict[str, float]:
-    """One pass over a batcher. The step's metrics are summed on the device
-    in f64 and read once, at the end; a siamese pass also gives the
-    accuracy on the same pairs and on the different pairs."""
+               train: bool, max_batches: int = 0, prefetch: int = 2,
+               mesh: Mesh | None = None) -> dict[str, float]:
+    """One pass over a batcher (this rank's slice of each batch with a
+    mesh). The step's metrics are summed on the device in f64 and read
+    once, at the end; a siamese pass also gives the accuracy on the same
+    pairs and on the different pairs."""
     keys = METRIC_KEYS if train else METRIC_KEYS[:3]
     sums = None
     n_batches = 0
-    for batch in prefetch_to_device(batcher.epoch(epoch), device, depth=prefetch):
+    for batch in prefetch_to_device(batcher.epoch(epoch), device, depth=prefetch, mesh=mesh):
         metrics = step_fn(state, batch)
         if sums is None and "same_count" in metrics:
             keys += PAIR_KEYS
@@ -127,16 +141,24 @@ def _run_epoch(step_fn: Callable, state: TrainState, batcher, device: torch.devi
     return agg
 
 
-def _check_mesh(config: TrainConfig) -> None:
-    m = config.mesh
-    if m.data_parallel > 1 or m.model_parallel > 1:
-        raise NotImplementedError(
-            f"the port trains on one device: data_parallel={m.data_parallel}, "
-            f"model_parallel={m.model_parallel} needs the mesh path (ROADMAP section 1)")
+def _quiet(*args, **kwargs) -> None:
+    """The log of a rank other than rank 0."""
+
+
+def mesh_for(config: TrainConfig, device: str | torch.device | None,
+             mesh: Mesh | None = None) -> Mesh:
+    """``mesh``, else ``config.mesh`` over the process group's ranks; raises
+    when the global batch does not split over the data ranks."""
+    mesh = mesh if mesh is not None else build_mesh(config.mesh, device=device)
+    dp = mesh.size(mesh.data_axis)
+    if config.batch_size % dp:
+        raise ValueError(f"batch_size={config.batch_size} does not split over {dp} data ranks")
+    return mesh
 
 
 def _lr_finder_prepass(config: TrainConfig, num_classes: int, arc_kwargs: dict, batcher,
-                       dev: torch.device, results: ResultsManager, base_lr: float) -> float:
+                       dev: torch.device, results: ResultsManager, base_lr: float,
+                       mesh: Mesh) -> float:
     """The LR range test on a probe: a second model built and initialised
     from ``seed + 1`` with its own optimizer, which the sweep changes and
     then drops. Writes ``lr_finder.json``; returns the suggested rate when
@@ -147,12 +169,14 @@ def _lr_finder_prepass(config: TrainConfig, num_classes: int, arc_kwargs: dict, 
                       dropout_rate=config.dropout_rate, arcface_kwargs=arc_kwargs)
     probe_state = create_train_state(probe, config.replace(seed=config.seed + 1),
                                      config.model_type, dev)
+    shard_params(probe, mesh)
     analysis = find_optimal_lr(probe, config.model_type, probe_state, batcher, device=dev,
-                               compute_dtype=config.compute_dtype)
+                               compute_dtype=config.compute_dtype, mesh=mesh)
     results.save_json("lr_finder.json", dict(analysis))
     if analysis.get("valid"):
         base_lr = analysis["suggested_lr"]
-        logger.info("LR finder suggests %.3e", base_lr)
+        if mesh.is_primary:
+            logger.info("LR finder suggests %.3e", base_lr)
     return base_lr
 
 
@@ -162,15 +186,19 @@ def train_model(
     checkpoints_root: str | Path | None = None,
     model_name: str | None = None,
     device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> dict[str, Any]:
     """Train one model over one or more dataset directories, one after the
-    other, on ``device`` (default: the CUDA card). Returns a summary dict
-    with final metrics and artifact paths."""
+    other, on ``device`` (default: the CUDA card; with several ranks, each
+    rank's card), over ``mesh`` (default: ``config.mesh`` over the process
+    group's ranks). Returns a summary dict with final metrics and artifact
+    paths, the same on every rank."""
     if isinstance(dataset_dirs, (str, Path)):
         dataset_dirs = [dataset_dirs]
     dataset_dirs = [Path(d) for d in dataset_dirs]
-    dev = resolve_device(device)
-    _check_mesh(config)
+    mesh = mesh_for(config, device, mesh)
+    dev = mesh.device
+    log = logger.info if mesh.is_primary else _quiet
     # the margin head's cosine product is full f32 (PyTorch's default, made explicit)
     torch.backends.cuda.matmul.allow_tf32 = False
     batchers_per_ds = []
@@ -185,11 +213,12 @@ def train_model(
     ckroot = Path(checkpoints_root or CHECKPOINTS_DIR)
     ckroot.mkdir(parents=True, exist_ok=True)
     model_type = config.model_type
-    name = model_name or config.model_name or next_model_version(ckroot, model_type)
+    name = broadcast_object(
+        model_name or config.model_name or next_model_version(ckroot, model_type), mesh)
     model_dir = ckroot / name
-    results = ResultsManager(model_dir)
-    logger.info("training %s (%s) on %d dataset(s), %d classes, on %s",
-                name, model_type, len(dataset_dirs), num_classes, dev)
+    results = ResultsManager(model_dir, write=mesh.is_primary)
+    log("training %s (%s) on %d dataset(s), %d classes, on %s (mesh %s)",
+        name, model_type, len(dataset_dirs), num_classes, dev, mesh.shape)
 
     arc_kwargs = dict(
         margin=config.arcface.margin, scale=config.arcface.scale,
@@ -200,6 +229,7 @@ def train_model(
     model = get_model(model_type, num_classes=num_classes, param_dtype=config.param_dtype,
                       dropout_rate=config.dropout_rate, arcface_kwargs=arc_kwargs)
     state = create_train_state(model, config, model_type, dev)
+    shard_params(state.model, mesh)
     opt = state.opt_state
 
     # ArcFace phase 1 trains with a frozen backbone
@@ -214,10 +244,10 @@ def train_model(
     base_lr = config.optimizer.learning_rate
     if config.use_lr_finder:
         base_lr = _lr_finder_prepass(config, num_classes, arc_kwargs,
-                                     batchers_per_ds[0]["train"], dev, results, base_lr)
+                                     batchers_per_ds[0]["train"], dev, results, base_lr, mesh)
 
-    train_step = make_train_step(model_type, config.compute_dtype)
-    eval_step = make_eval_step(model_type, config.compute_dtype)
+    train_step = make_train_step(model_type, config.compute_dtype, mesh)
+    eval_step = make_eval_step(model_type, config.compute_dtype, mesh=mesh)
     scheduler = get_scheduler(config.scheduler, base_lr, config.epochs)
     stopper = EarlyStopping(patience=config.patience, min_delta=config.min_delta, mode="min", trace=True)
     best_val_acc = -1.0
@@ -230,6 +260,7 @@ def train_model(
         if found is not None:
             ep, path = found
             _, meta = restore_into(model_dir, path.name, state.model, opt)
+            shard_params([state.model, opt.slots], mesh)
             state.step = int(meta.get("step", state.step))
             if "scheduler" in meta:
                 scheduler.load_state_dict(meta["scheduler"])
@@ -238,8 +269,8 @@ def train_model(
             best_val_acc = float(meta.get("best_val_acc", -1.0))
             start_epoch = ep + 1
             resumed = True
-            logger.info("resumed from %s (epoch %d, step %d, lr %.3e)",
-                        path, ep, state.step, scheduler.lr)
+            log("resumed from %s (epoch %d, step %d, lr %.3e)",
+                path, ep, state.step, scheduler.lr)
 
     lr = scheduler.lr if resumed else scheduler.step()
     set_hyperparam(opt, "learning_rate", lr)
@@ -257,19 +288,20 @@ def train_model(
                                min(base_clip, 0.5 + 0.05 * epoch) if epoch < 10 else base_clip)
 
             train_m = _run_epoch(train_step, state, batchers["train"], dev, epoch, True,
-                                 config.max_train_batches, config.prefetch_depth)
+                                 config.max_train_batches, config.prefetch_depth, mesh)
             val_m = {"loss": float("nan"), "acc": float("nan")}
             if batchers["val"] is not None:
                 val_m = _run_epoch(eval_step, state, batchers["val"], dev, epoch, False,
-                                   config.max_val_batches, config.prefetch_depth)
+                                   config.max_val_batches, config.prefetch_depth, mesh)
 
             elapsed = time.time() - ep_start
             if val_m["acc"] == val_m["acc"] and val_m["acc"] > best_val_acc:  # not NaN
                 best_val_acc = val_m["acc"]
-                save_checkpoint(model_dir, "best", state.model.state_dict(),
-                                metadata={"epoch": epoch, "val_acc": best_val_acc,
-                                          "val_loss": val_m["loss"], "model_type": model_type,
-                                          "num_classes": num_classes, "dataset": ds_name})
+                if mesh.is_primary:
+                    save_checkpoint(model_dir, "best", state.model.state_dict(),
+                                    metadata={"epoch": epoch, "val_acc": best_val_acc,
+                                              "val_loss": val_m["loss"], "model_type": model_type,
+                                              "num_classes": num_classes, "dataset": ds_name})
 
             row = dict(epoch=epoch, dataset=ds_name,
                        train_loss=round(train_m["loss"], 6), train_acc=round(train_m["acc"], 6),
@@ -283,15 +315,15 @@ def train_model(
             extra = ""
             if "same_acc" in val_m:
                 extra = f" same_acc={val_m['same_acc']:.3f} diff_acc={val_m['diff_acc']:.3f}"
-            logger.info("[%s] epoch %d/%d loss=%.4f acc=%.4f val_loss=%.4f val_acc=%.4f lr=%.2e %.1fs%s",
-                        name, epoch + 1, config.epochs, train_m["loss"], train_m["acc"],
-                        val_m["loss"], val_m["acc"], lr, elapsed, extra)
+            log("[%s] epoch %d/%d loss=%.4f acc=%.4f val_loss=%.4f val_acc=%.4f lr=%.2e %.1fs%s",
+                name, epoch + 1, config.epochs, train_m["loss"], train_m["acc"],
+                val_m["loss"], val_m["acc"], lr, elapsed, extra)
 
             if two_phase and epoch + 1 == transition_epoch:
                 set_hyperparam(opt, "backbone_scale", 1.0)
                 scheduler.base_lr *= 0.5
-                logger.info("[%s] two-phase transition at epoch %d: backbone unfrozen, LR halved",
-                            name, epoch + 1)
+                log("[%s] two-phase transition at epoch %d: backbone unfrozen, LR halved",
+                    name, epoch + 1)
 
             lr = scheduler.step(val_m["loss"])
             set_hyperparam(opt, "learning_rate", lr)
@@ -300,7 +332,8 @@ def train_model(
 
             # periodic full checkpoint, taken after the end-of-epoch scheduler
             # step, so that a resumed run continues where this one would
-            if config.checkpoint_every and (epoch + 1) % config.checkpoint_every == 0:
+            if (config.checkpoint_every and (epoch + 1) % config.checkpoint_every == 0
+                    and mesh.is_primary):
                 save_checkpoint(model_dir, f"epoch_{epoch}", state.model.state_dict(),
                                 opt_state=opt.state_dict(),
                                 metadata={"epoch": epoch, "val_acc": val_m["acc"],
@@ -311,21 +344,22 @@ def train_model(
                 prune_checkpoints(model_dir, keep=config.keep_checkpoints)
 
             if stop:
-                logger.info("[%s] early stopping at epoch %d", name, epoch + 1)
+                log("[%s] early stopping at epoch %d", name, epoch + 1)
                 break
         start_epoch = 0  # later datasets start from epoch 0
 
-    save_checkpoint(model_dir, "final", state.model.state_dict(),
-                    metadata={"model_type": model_type, "num_classes": num_classes,
-                              "epochs": config.epochs})
+    if mesh.is_primary:
+        save_checkpoint(model_dir, "final", state.model.state_dict(),
+                        metadata={"model_type": model_type, "num_classes": num_classes,
+                                  "epochs": config.epochs})
     results.save_learning_curves()
 
     test_summary = {}
     test_b = batchers_per_ds[-1].get("test")
     if test_b is not None:
-        test_summary = _test(state, test_b, model_type, config, dev, results)
-        logger.info("[%s] test: loss=%.4f acc=%.4f", name, test_summary["test_loss"],
-                    test_summary["test_acc"])
+        test_summary = _test(state, test_b, model_type, config, dev, results, mesh)
+        log("[%s] test: loss=%.4f acc=%.4f", name, test_summary["test_loss"],
+            test_summary["test_acc"])
 
     info = {
         "model_name": name,
@@ -342,29 +376,34 @@ def train_model(
         **test_summary,
     }
     results.save_model_info(info)
+    mesh.barrier()  # every file is written before any rank goes on
     return {"model_dir": model_dir, "state": state, "model": state.model, "summary": info,
             "history": history_rows, "best_val_acc": best_val_acc, **test_summary}
 
 
 def _test(state: TrainState, batcher, model_type: str, config: TrainConfig, dev: torch.device,
-          results: ResultsManager) -> dict[str, float]:
+          results: ResultsManager, mesh: Mesh) -> dict[str, float]:
     """Test loss and accuracy, and the confusion matrix (written to
-    ``metrics/confusion_matrix.json``; 2 x 2 of pair labels for siamese)."""
-    step = make_eval_step(model_type, config.compute_dtype, return_outputs=True)
+    ``metrics/confusion_matrix.json``; 2 x 2 of pair labels for siamese);
+    with a mesh the predictions of the data ranks are gathered in batch
+    order."""
+    step = make_eval_step(model_type, config.compute_dtype, return_outputs=True, mesh=mesh)
     y_true, y_pred = [], []
     sums = {"loss_sum": 0.0, "correct": 0.0, "count": 0.0}
     n_b = 0
-    for batch in prefetch_to_device(batcher.epoch(0), dev, depth=config.prefetch_depth):
+    for batch in prefetch_to_device(batcher.epoch(0), dev, depth=config.prefetch_depth,
+                                    mesh=mesh):
         m = step(state, batch)
         for k in sums:
             sums[k] += float(m[k])
-        mask = batch["mask"].bool().cpu().numpy()
         if model_type == "siamese":
-            y_pred.extend((m["distances"] < SIAMESE_THRESHOLD).long().cpu().numpy()[mask].tolist())
-            y_true.extend(batch["pair_label"].cpu().numpy()[mask].tolist())
+            pred, true = (m["distances"] < SIAMESE_THRESHOLD).long(), batch["pair_label"]
         else:
-            y_pred.extend(m["probs"].argmax(-1).cpu().numpy()[mask].tolist())
-            y_true.extend(batch["label"].cpu().numpy()[mask].tolist())
+            pred, true = m["probs"].argmax(-1), batch["label"]
+        pred, true, mask = (all_gather(t, mesh, mesh.data_axis).cpu().numpy()
+                            for t in (pred, true, batch["mask"]))
+        y_pred.extend(pred[mask.astype(bool)].tolist())
+        y_true.extend(true[mask.astype(bool)].tolist())
         n_b += 1
         if config.max_test_batches and n_b >= config.max_test_batches:
             break

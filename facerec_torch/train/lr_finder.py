@@ -115,23 +115,26 @@ class LearningRateFinder:
 
 def find_optimal_lr(model: torch.nn.Module, model_type: str, state, batcher, num_steps: int = 100,
                     device: str | torch.device | None = None,
-                    compute_dtype: str = "bfloat16") -> dict[str, Any]:
+                    compute_dtype: str = "bfloat16", mesh=None) -> dict[str, Any]:
     """The range test of ``model`` (already in ``state``, which the sweep
     changes) over ``batcher``'s epochs, one after the other, on ``device``
-    (default: the CUDA card), at ``compute_dtype``."""
+    (default: the CUDA card), at ``compute_dtype``. With ``mesh`` the sweep
+    runs data-parallel (the mesh's device; each rank its slice of every
+    batch): the losses, and so the stop rules and the analysis, are the
+    global batch's on every rank."""
     from facerec_torch import resolve_device
     from facerec_torch.data.pipeline import prefetch_to_device
     from facerec_torch.train.state import set_hyperparam
     from facerec_torch.train.steps import make_train_step
 
-    dev = resolve_device(device)
-    train_step = make_train_step(model_type, compute_dtype)
+    dev = mesh.device if mesh is not None else resolve_device(device)
+    train_step = make_train_step(model_type, compute_dtype, mesh)
     finder = LearningRateFinder(model_type, num_steps=num_steps)
 
     def batches():
         epoch = 0
         while True:
-            yield from prefetch_to_device(batcher.epoch(epoch), dev)
+            yield from prefetch_to_device(batcher.epoch(epoch), dev, mesh=mesh)
             epoch += 1
 
     return finder.find(state, train_step, batches(), lambda os, lr: set_hyperparam(os, "learning_rate", lr))

@@ -20,30 +20,37 @@ TRAIN_CSV_HEADER = [
 
 
 class ResultsManager:
-    def __init__(self, model_dir: str | Path):
+    """``write=False`` keeps the history and writes nothing (the ranks of a
+    mesh other than rank 0)."""
+
+    def __init__(self, model_dir: str | Path, write: bool = True):
         self.model_dir = Path(model_dir)
         self.metrics_dir = self.model_dir / "metrics"
         self.plots_dir = self.model_dir / "plots"
         self.logs_dir = self.model_dir / "logs"
-        for d in (self.metrics_dir, self.plots_dir, self.logs_dir):
-            d.mkdir(parents=True, exist_ok=True)
+        self.write = write
+        if write:
+            for d in (self.metrics_dir, self.plots_dir, self.logs_dir):
+                d.mkdir(parents=True, exist_ok=True)
         self._train_csv = self.metrics_dir / "training_metrics.csv"
         self.history: list[dict] = []
 
     def record_epoch(self, **row: Any) -> None:
+        self.history.append(dict(row))
+        if not self.write:
+            return
         new = not self._train_csv.exists()
         with self._train_csv.open("a", newline="") as f:
             w = csv.DictWriter(f, fieldnames=TRAIN_CSV_HEADER, extrasaction="ignore")
             if new:
                 w.writeheader()
             w.writerow({k: row.get(k, "") for k in TRAIN_CSV_HEADER})
-        self.history.append(dict(row))
 
     def save_learning_curves(self) -> Path:
         """CSV learning-curves dump (reference training.py:30-68 — the
         reference computes CSVs, plotting is disabled there too)."""
         path = self.metrics_dir / "learning_curves.csv"
-        if not self.history:
+        if not self.history or not self.write:
             return path
         keys = ["epoch", "train_loss", "train_acc", "val_loss", "val_acc", "lr"]
         with path.open("w", newline="") as f:
@@ -55,7 +62,8 @@ class ResultsManager:
 
     def save_json(self, name: str, payload: dict) -> Path:
         path = self.metrics_dir / name
-        path.write_text(json.dumps(payload, indent=2, default=_json_default))
+        if self.write:
+            path.write_text(json.dumps(payload, indent=2, default=_json_default))
         return path
 
     def save_model_info(self, info: dict) -> Path:
@@ -63,7 +71,8 @@ class ResultsManager:
         info = dict(info)
         info.setdefault("saved_at", time.strftime("%Y-%m-%dT%H:%M:%S"))
         path = self.model_dir / "model_info.json"
-        path.write_text(json.dumps(info, indent=2, default=_json_default))
+        if self.write:
+            path.write_text(json.dumps(info, indent=2, default=_json_default))
         return path
 
 

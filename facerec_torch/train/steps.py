@@ -19,6 +19,15 @@ different pairs apart. ``compute_dtype`` "bfloat16" runs the model under
 autocast with f32 parameters; the margin logits and the loss stay f32.
 The train step's parts are named ranges (``train_step.forward``,
 ``.backward``, ``.grads``, ``.optimizer``) that torch.profiler reports.
+
+With a mesh of more than one data rank the batch is this rank's slice of
+the global batch, and the steps compute what one process computes on the
+global batch (as GSPMD does for the JAX steps): BatchNorm and dropout see
+the global batch (``parallel.mesh.data_parallel``), the loss is the masked
+mean over the global batch (the sum of the local sums over the global
+count), the gradients are summed over the data ranks before the scrub, the
+norm and the clip, and the metric sums are summed too, so every rank reads
+the same metrics.
 """
 
 from __future__ import annotations
@@ -30,6 +39,8 @@ from torch.profiler import record_function
 
 from facerec_torch.models import get_criterion
 from facerec_torch.models.losses import pairwise_distance
+from facerec_torch.parallel.collectives import psum
+from facerec_torch.parallel.mesh import Mesh, data_parallel
 from facerec_torch.train.state import TrainState, global_norm
 
 SIAMESE_THRESHOLD = 0.5  # distance below which a pair counts as the same person
@@ -77,8 +88,28 @@ def _batch_metrics(model_type: str, outputs, batch: dict,
     return out
 
 
-def make_train_step(model_type: str, compute_dtype: str = "float32") -> Callable:
+def _data_mesh(mesh: Mesh | None) -> Mesh | None:
+    """``mesh`` when its data axis has more than one rank."""
+    return mesh if mesh is not None and mesh.size(mesh.data_axis) > 1 else None
+
+
+def _psum_metrics(metrics: dict[str, torch.Tensor], mesh: Mesh) -> dict[str, torch.Tensor]:
+    """Every metric sum summed over the data ranks, in one collective."""
+    keys = list(metrics)
+    total = psum(torch.stack([metrics[k].float() for k in keys]), mesh, mesh.data_axis)
+    return dict(zip(keys, total.unbind()))
+
+
+def _psum_grads(grads: list[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
+    """The gradients summed over the data ranks, in one collective."""
+    flat = psum(torch.cat([g.reshape(-1) for g in grads]), mesh, mesh.data_axis)
+    return [part.view(g.shape) for g, part in zip(grads, flat.split([g.numel() for g in grads]))]
+
+
+def make_train_step(model_type: str, compute_dtype: str = "float32",
+                    mesh: Mesh | None = None) -> Callable:
     loss_fn = get_criterion(model_type)
+    sharded = _data_mesh(mesh)
 
     def train_step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         model = state.model
@@ -87,18 +118,26 @@ def make_train_step(model_type: str, compute_dtype: str = "float32") -> Callable
         dev = _device(model)
         params = state.opt_state.params
         with record_function("train_step.forward"):
-            with _autocast(dev, compute_dtype):
+            with _autocast(dev, compute_dtype), data_parallel(sharded):
                 outputs = _forward(model, model_type, batch, state.epoch,
                                    state.dropout_generator(dev))
             loss = loss_fn(outputs, batch, batch.get("mask"))
+            objective = loss
+            if sharded is not None:  # this rank's share of the global masked mean
+                local = _count(outputs, batch)
+                objective = loss * local / torch.clamp(psum(local, sharded), min=1.0)
         with record_function("train_step.backward"):
-            grads = torch.autograd.grad(loss, params, allow_unused=True)
+            grads = torch.autograd.grad(objective, params, allow_unused=True)
         with record_function("train_step.grads"), torch.no_grad():
-            grads = [torch.zeros_like(p) if g is None else torch.nan_to_num_(g, 0.0, 0.0, 0.0)
-                     for g, p in zip(grads, params)]
+            grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
+            if sharded is not None:
+                grads = _psum_grads(grads, sharded)
+            grads = [torch.nan_to_num_(g, 0.0, 0.0, 0.0) for g in grads]
             metrics = _batch_metrics(model_type, outputs, batch)
-            metrics["grad_norm"] = global_norm(grads)
             metrics["loss_sum"] = loss.detach() * metrics["count"]
+            if sharded is not None:
+                metrics = _psum_metrics(metrics, sharded)
+            metrics["grad_norm"] = global_norm(grads)
         with record_function("train_step.optimizer"):
             state.opt_state.step(grads)
         state.step += 1
@@ -107,9 +146,21 @@ def make_train_step(model_type: str, compute_dtype: str = "float32") -> Callable
     return train_step
 
 
+def _count(outputs, batch: dict) -> torch.Tensor:
+    """The valid examples of this rank's slice (f32)."""
+    mask = batch.get("mask")
+    if mask is not None:
+        return mask.float().sum()
+    first = outputs[0] if isinstance(outputs, tuple) else outputs
+    return torch.tensor(float(first.shape[0]), device=first.device)
+
+
 def make_eval_step(model_type: str, compute_dtype: str = "float32",
-                   return_outputs: bool = False) -> Callable:
+                   return_outputs: bool = False, mesh: Mesh | None = None) -> Callable:
+    """The eval step; with a mesh the metric sums are summed over the data
+    ranks, and the outputs (``return_outputs``) stay this rank's rows."""
     loss_fn = get_criterion(model_type)
+    sharded = _data_mesh(mesh)
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch: dict) -> dict[str, Any]:
@@ -120,6 +171,8 @@ def make_eval_step(model_type: str, compute_dtype: str = "float32",
         loss = loss_fn(outputs, batch, batch.get("mask"))
         metrics = _batch_metrics(model_type, outputs, batch)
         metrics["loss_sum"] = loss * metrics["count"]
+        if sharded is not None:
+            metrics = _psum_metrics(metrics, sharded)
         if return_outputs:
             if model_type == "siamese":
                 metrics["distances"] = pairwise_distance(*outputs)

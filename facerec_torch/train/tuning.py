@@ -14,7 +14,12 @@ A first-party study engine, as the JAX package's (no Optuna):
     optional ``train_best`` hand-off.
 
 Each trial trains on ``device`` with the port's train and eval steps; the
-per-epoch val accuracy is the objective (maximised). As in JAX, a trial
+per-epoch val accuracy is the objective (maximised). Over a mesh of
+several ranks (the base config's ``mesh``, as ``train_model``) every trial
+trains data-parallel and every rank draws the same trials from the same
+history: rank 0 alone writes the study's SQLite file and the results, the
+other ranks keep their trials table in memory, started from a copy of the
+file. As in JAX, a trial
 that raises is recorded as ``FAIL`` and the study goes on, except after a
 CUDA error: the card's context may be lost, so the study records the
 ``FAIL`` row and raises.
@@ -33,8 +38,11 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from facerec_torch import is_device_error, resolve_device
+from facerec_torch import is_device_error
 from facerec_torch.config import ArcFaceConfig, OptimizerConfig, SchedulerConfig, TrainConfig, TuningConfig, logger
+from facerec_torch.parallel.collectives import broadcast_object
+from facerec_torch.parallel.mesh import Mesh, build_mesh, shard_params
+from facerec_torch.train.engine import _quiet
 
 TRIAL0_BASELINES: dict[str, dict[str, Any]] = {
     "hybrid": {"batch_size": 32, "learning_rate": 3e-4, "weight_decay": 1e-4,
@@ -71,10 +79,19 @@ class TrialPruned(Exception):
 class Study:
     """Minimal Optuna-like study: trials table in SQLite (resumable)."""
 
-    def __init__(self, name: str, storage: str | Path | None = None, seed: int = 0):
+    def __init__(self, name: str, storage: str | Path | None = None, seed: int = 0,
+                 replica_of: str | Path | None = None):
+        """``replica_of``: keep the trials table in memory, starting from a
+        copy of that study file (a rank that does not write it)."""
         self.name = name
         self.rng = np.random.default_rng(seed)
         self.db = sqlite3.connect(str(storage) if storage else ":memory:")
+        if replica_of is not None and Path(replica_of).exists():
+            src = sqlite3.connect(f"file:{replica_of}?mode=ro", uri=True)
+            try:
+                src.backup(self.db)
+            finally:
+                src.close()
         self.db.execute(
             "CREATE TABLE IF NOT EXISTS trials (study TEXT, number INTEGER, state TEXT,"
             " value REAL, params TEXT, reports TEXT, started REAL, finished REAL)"
@@ -232,25 +249,34 @@ def run_hyperparameter_tuning(
     objective_fn: Callable[[TrainConfig, Any], list[float]] | None = None,
     lr_finder_fn: Callable[..., dict] | None = None,
     device: str | torch.device | None = None,
+    mesh: Mesh | None = None,
 ) -> dict[str, Any]:
-    """Run the study on ``device`` (default: the CUDA card).
+    """Run the study on ``device`` (default: the CUDA card), over ``mesh``
+    (default: the base config's ``mesh`` over the process group's ranks).
     ``objective_fn(config, report) -> per-epoch val accs`` defaults to a
     short real training run and ``lr_finder_fn(dataset_dir, config,
     tuning) -> analysis`` to a real range test; both are injectable."""
     from facerec_torch.config import OUTPUTS_DIR
 
-    dev = resolve_device(device)
-    out_dir = Path(output_dir or (OUTPUTS_DIR / "hyperopt" / f"{tuning.model_type}_{int(time.time())}"))
-    out_dir.mkdir(parents=True, exist_ok=True)
-    storage = tuning.storage or str(out_dir / "study.sqlite")
-    study = Study(tuning.study_name, storage, seed=tuning.seed)
     base = base_config or TrainConfig(model_type=tuning.model_type)
+    mesh = mesh if mesh is not None else build_mesh(base.mesh, device=device)
+    dev = mesh.device
+    log = logger.info if mesh.is_primary else _quiet
+    out_dir = Path(output_dir or (OUTPUTS_DIR / "hyperopt" / broadcast_object(
+        f"{tuning.model_type}_{int(time.time())}", mesh)))
+    storage = tuning.storage or str(out_dir / "study.sqlite")
+    if mesh.is_primary:
+        out_dir.mkdir(parents=True, exist_ok=True)
+        study = Study(tuning.study_name, storage, seed=tuning.seed)
+    mesh.barrier()  # the study file exists before another rank copies it
+    if not mesh.is_primary:
+        study = Study(tuning.study_name, None, seed=tuning.seed, replica_of=storage)
     start = time.time()
 
     if objective_fn is None:
-        objective_fn = _default_objective(dataset_dir, tuning, dev)
+        objective_fn = _default_objective(dataset_dir, tuning, dev, mesh)
     if lr_finder_fn is None:
-        lr_finder_fn = functools.partial(_run_lr_finder, device=dev)
+        lr_finder_fn = functools.partial(_run_lr_finder, device=dev, mesh=mesh)
 
     # LR-finder pre-pass: one range test on the base config centres the LR
     # search window for every sampled trial
@@ -258,25 +284,26 @@ def run_hyperparameter_tuning(
     if tuning.use_lr_finder and not tuning.use_lr_finder_per_trial:
         try:
             analysis = lr_finder_fn(dataset_dir, base, tuning)
-            (out_dir / "lr_finder.json").write_text(json.dumps(
-                {k: v for k, v in analysis.items() if not isinstance(v, (list, np.ndarray))}, indent=2))
+            if mesh.is_primary:
+                (out_dir / "lr_finder.json").write_text(json.dumps(
+                    {k: v for k, v in analysis.items() if not isinstance(v, (list, np.ndarray))},
+                    indent=2))
             if analysis.get("valid"):
                 lr_center = float(analysis["suggested_lr"])
                 lo, hi = Study.lr_window(tuning.model_type, lr_center, tuning.lr_finder_span)
-                logger.info("LR finder suggests %.3e -> search window [%.2e, %.2e]",
-                            lr_center, lo, hi)
+                log("LR finder suggests %.3e -> search window [%.2e, %.2e]", lr_center, lo, hi)
         except Exception as e:
             if is_device_error(e):
                 raise
             logger.warning("LR-finder pre-pass failed (%s); using the default window", e)
 
     completed = [t for t in study.trials if t["state"] in ("COMPLETE", "PRUNED")]
-    logger.info("study '%s': %d existing trials (resume)", tuning.study_name, len(completed))
+    log("study '%s': %d existing trials (resume)", tuning.study_name, len(completed))
 
     n_new = max(tuning.n_trials - len(completed), 0)
     for _ in range(n_new):
         if tuning.timeout_seconds and time.time() - start > tuning.timeout_seconds:
-            logger.info("tuning timeout reached")
+            log("tuning timeout reached")
             break
         number = study.next_trial_number()
         params = study.suggest(tuning.model_type, number, tuning.use_trial0_baseline,
@@ -298,9 +325,8 @@ def run_hyperparameter_tuning(
                         np.exp(study.rng.uniform(np.log(lo), np.log(hi))))
                     params["lr_finder_suggested"] = float(analysis["suggested_lr"])
                     cfg = params_to_config(tuning.model_type, params, base)
-                    logger.info("trial %d LR finder: %.3e -> window [%.2e, %.2e], lr=%.3e",
-                                number, analysis["suggested_lr"], lo, hi,
-                                params["learning_rate"])
+                    log("trial %d LR finder: %.3e -> window [%.2e, %.2e], lr=%.3e",
+                        number, analysis["suggested_lr"], lo, hi, params["learning_rate"])
             except Exception as e:
                 if is_device_error(e):
                     raise
@@ -318,11 +344,11 @@ def run_hyperparameter_tuning(
             values = objective_fn(cfg, report)
             best = max(values) if values else 0.0
             study.record(number, "COMPLETE", best, params, reports or values)
-            logger.info("trial %d COMPLETE val_acc=%.4f %s", number, best,
-                        {k: round(v, 5) if isinstance(v, float) else v for k, v in params.items()})
+            log("trial %d COMPLETE val_acc=%.4f %s", number, best,
+                {k: round(v, 5) if isinstance(v, float) else v for k, v in params.items()})
         except TrialPruned:
             study.record(number, "PRUNED", max(reports) if reports else None, params, reports)
-            logger.info("trial %d PRUNED after %d epochs", number, len(reports))
+            log("trial %d PRUNED after %d epochs", number, len(reports))
         except Exception as e:  # failed trial: record and continue (optuna semantics)
             study.record(number, "FAIL", None, params, reports)
             logger.warning("trial %d FAILED: %s", number, e)
@@ -340,47 +366,51 @@ def run_hyperparameter_tuning(
         "elapsed_sec": round(time.time() - start, 1),
         "trials": [{k: t[k] for k in ("number", "state", "value", "params")} for t in study.trials],
     }
-    (out_dir / "results.json").write_text(json.dumps(summary, indent=2))
-    lines = [f"Study {tuning.study_name}: {len(study.trials)} trials"]
-    if best:
-        lines.append(f"Best value: {best['value']:.4f} (trial {best['number']})")
-        lines += [f"  {k}: {v}" for k, v in best["params"].items()]
-    (out_dir / "study_summary.txt").write_text("\n".join(lines))
+    if mesh.is_primary:
+        (out_dir / "results.json").write_text(json.dumps(summary, indent=2))
+        lines = [f"Study {tuning.study_name}: {len(study.trials)} trials"]
+        if best:
+            lines.append(f"Best value: {best['value']:.4f} (trial {best['number']})")
+            lines += [f"  {k}: {v}" for k, v in best["params"].items()]
+        (out_dir / "study_summary.txt").write_text("\n".join(lines))
 
     if tuning.train_best and best:
         from facerec_torch.train.engine import train_model
 
         cfg = params_to_config(tuning.model_type, best["params"], base)
-        summary["train_best"] = train_model(cfg, dataset_dir, device=dev)["summary"]
+        summary["train_best"] = train_model(cfg, dataset_dir, device=dev, mesh=mesh)["summary"]
+    mesh.barrier()
     return summary
 
 
 def _run_lr_finder(dataset_dir: str | Path, base: TrainConfig, tuning: TuningConfig,
-                   device: str | torch.device | None = None) -> dict:
+                   device: str | torch.device | None = None, mesh: Mesh | None = None) -> dict:
     """One LR range test on the base config: 60 steps on a probe model of
     its own, initialised from ``tuning.seed + 99``, over the trainer's own
-    train batcher."""
+    train batcher (data-parallel over ``mesh``)."""
     from facerec_torch.models import get_model
-    from facerec_torch.train.engine import _make_batchers
+    from facerec_torch.train.engine import _make_batchers, mesh_for
     from facerec_torch.train.lr_finder import find_optimal_lr
     from facerec_torch.train.state import create_train_state
 
-    dev = resolve_device(device)
     cfg = base.replace(model_type=tuning.model_type)
+    mesh = mesh_for(cfg, device, mesh)
     batchers, num_classes = _make_batchers(Path(dataset_dir), cfg)
     model = get_model(cfg.model_type, num_classes=num_classes, dropout_rate=cfg.dropout_rate)
-    state = create_train_state(model, cfg.replace(seed=tuning.seed + 99), cfg.model_type, dev)
+    state = create_train_state(model, cfg.replace(seed=tuning.seed + 99), cfg.model_type,
+                               mesh.device)
+    shard_params(model, mesh)
     return find_optimal_lr(model, cfg.model_type, state, batchers["train"], num_steps=60,
-                           device=dev, compute_dtype=cfg.compute_dtype)
+                           compute_dtype=cfg.compute_dtype, mesh=mesh)
 
 
 def _default_objective(dataset_dir: str | Path, tuning: TuningConfig,
-                       device: str | torch.device | None = None):
-    dev = resolve_device(device)
-
+                       device: str | torch.device | None = None, mesh: Mesh | None = None):
+    """A trial: ``tuning.epochs_per_trial`` epochs of the trial's config,
+    data-parallel over ``mesh`` (default: one rank on ``device``)."""
     def objective(cfg: TrainConfig, report) -> list[float]:
         from facerec_torch.models import get_model
-        from facerec_torch.train.engine import _make_batchers, _run_epoch
+        from facerec_torch.train.engine import _make_batchers, _run_epoch, mesh_for
         from facerec_torch.train.schedulers import get_scheduler
         from facerec_torch.train.state import create_train_state, set_hyperparam
         from facerec_torch.train.steps import make_eval_step, make_train_step
@@ -392,9 +422,12 @@ def _default_objective(dataset_dir: str | Path, tuning: TuningConfig,
                                               progressive_margin=cfg.arcface.progressive_margin,
                                               warmup_epochs=cfg.arcface.warmup_epochs)
                           if cfg.model_type == "arcface" else None)
+        trial_mesh = mesh_for(cfg, device, mesh)
+        dev = trial_mesh.device
         state = create_train_state(model, cfg.replace(seed=tuning.seed), cfg.model_type, dev)
-        train_step = make_train_step(cfg.model_type, cfg.compute_dtype)
-        eval_step = make_eval_step(cfg.model_type, cfg.compute_dtype)
+        shard_params(model, trial_mesh)
+        train_step = make_train_step(cfg.model_type, cfg.compute_dtype, trial_mesh)
+        eval_step = make_eval_step(cfg.model_type, cfg.compute_dtype, mesh=trial_mesh)
         sched = get_scheduler(cfg.scheduler, cfg.optimizer.learning_rate, tuning.epochs_per_trial)
         lr = sched.step()
         set_hyperparam(state.opt_state, "learning_rate", lr)
@@ -402,9 +435,10 @@ def _default_objective(dataset_dir: str | Path, tuning: TuningConfig,
         for epoch in range(tuning.epochs_per_trial):
             state.epoch = float(epoch)
             _run_epoch(train_step, state, batchers["train"], dev, epoch, True,
-                       prefetch=cfg.prefetch_depth)
+                       prefetch=cfg.prefetch_depth, mesh=trial_mesh)
             vb = batchers["val"] or batchers["train"]
-            val = _run_epoch(eval_step, state, vb, dev, epoch, False, prefetch=cfg.prefetch_depth)
+            val = _run_epoch(eval_step, state, vb, dev, epoch, False, prefetch=cfg.prefetch_depth,
+                             mesh=trial_mesh)
             accs.append(val["acc"])
             report(epoch, val["acc"])
             lr = sched.step(val["loss"])

@@ -140,7 +140,8 @@ def test_epoch_and_learning_rate_schedule_match_jax(synthetic_imagefolder, tmp_p
     loop, one with the val loss after each epoch."""
     calls = []
 
-    def fake_epoch(step_fn, state, batcher, device, epoch, train, max_batches=0, prefetch=2):
+    def fake_epoch(step_fn, state, batcher, device, epoch, train, max_batches=0, prefetch=2,
+                   mesh=None):
         calls.append((train, epoch, state.epoch, state.opt_state.hyperparams["learning_rate"]))
         return {"loss": 2.0 - 0.1 * epoch, "acc": 0.25 * epoch}
 

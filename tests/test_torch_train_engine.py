@@ -10,6 +10,7 @@ import json
 import math
 from pathlib import Path
 
+import jax
 import numpy as np
 import pytest
 import torch
@@ -183,17 +184,22 @@ def test_resume_matches_uninterrupted(tmp_path):
             == resumed["state"].opt_state.hyperparams["learning_rate"])
 
 
+# A mesh that does not fit a world of one rank is refused by build_mesh, as
+# JAX's build_mesh refuses it on one device (tests/test_torch_parallel.py
+# trains on meshes that fit).
 @pytest.mark.parametrize("change,match", [
-    (dict(mesh=MeshConfig(data_parallel=2, model_parallel=2)), "ROADMAP"),
-    (dict(mesh=MeshConfig(data_parallel=2)), "mesh"),
-    (dict(mesh=MeshConfig(model_parallel=2)), "mesh"),
-    # the LR finder runs since the tuner's slice (tests/test_torch_lr_finder.py);
-    # its pre-pass on a mesh is refused with the mesh
-    pytest.param(dict(use_lr_finder=True, mesh=MeshConfig(data_parallel=2)), "mesh",
+    (dict(mesh=MeshConfig(data_parallel=2, model_parallel=2)), "does not divide world size 1"),
+    (dict(mesh=MeshConfig(data_parallel=2)), "!= world size 1"),
+    (dict(mesh=MeshConfig(model_parallel=2)), "does not divide world size 1"),
+    pytest.param(dict(use_lr_finder=True, mesh=MeshConfig(data_parallel=2)), "!= world size 1",
                  id="change3-LR finder"),
 ])
 def test_train_model_refuses_what_is_not_ported(synthetic_imagefolder, tmp_path, change, match):
-    with pytest.raises(NotImplementedError, match=match):
+    from facerec_tpu.parallel.mesh import build_mesh as jax_build_mesh
+
+    with pytest.raises(ValueError):  # the JAX package refuses the same mesh on one device
+        jax_build_mesh(change["mesh"], devices=jax.devices()[:1])
+    with pytest.raises(ValueError, match=match):
         train_model(_cfg(**change), synthetic_imagefolder, checkpoints_root=tmp_path, device="cpu")
 
 

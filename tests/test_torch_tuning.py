@@ -218,7 +218,8 @@ def test_objective_sets_the_epoch_and_learning_rates(synthetic_imagefolder, monk
     reports each epoch's val accuracy."""
     calls = []
 
-    def fake_epoch(step_fn, state, batcher, device, epoch, train, max_batches=0, prefetch=2):
+    def fake_epoch(step_fn, state, batcher, device, epoch, train, max_batches=0, prefetch=2,
+                   mesh=None):
         calls.append((train, epoch, state.epoch, state.opt_state.hyperparams["learning_rate"]))
         return {"loss": 2.0 - 0.1 * epoch, "acc": 0.2 * (epoch + 1)}
 
