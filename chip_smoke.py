@@ -53,6 +53,23 @@ Phases, each of which raises (and so exits nonzero) on failure:
               the busy share, printed beside the ArcFace serve path's. On
               each serve path, each kernel it launched is held against its
               plain version on the inputs that path gave it;
+     serve_trained  the trained ArcFace the repository commits
+              (``outputs/checkpoints/arcface_synth/best``, an orbax tree)
+              read by the port's own reader (``facerec_torch.train.orbax``,
+              no JAX: ``jax`` must not be in ``sys.modules``), every one of
+              its 106 arrays held against a pinned SHA-256 digest (dtype,
+              shape, bytes) taken from the JAX package's restore; then the
+              1,024-row serve step with that embedder loaded as
+              ``build_default_pipeline`` loads it (bf16): fill >= 0.95 x 384,
+              K1 and K2 once each, K1 within 6.0e-7 of its plain version and
+              K2 bit for bit on the path's own inputs, faces/s and stage ms
+              beside serve's; then closed-set identification of the 16
+              identities of ``make_synthetic_arrays(16, 24, 160, seed 0)``:
+              one fresh render per identity enrolled in a ``GalleryStore``
+              on the card, the 384 renders queried through K1 (ImageNet-
+              normalised, as the model was trained): the f32 embedder's
+              correct answers >= JAX's on the CPU (343) less one, and above
+              the random-init embedder's on the same renders;
      mesh     the mesh path (``facerec_torch/parallel``): at world size 1
               over NCCL, the serve step through ``FacePipeline(mesh=(1, 1))``
               and one f32 ArcFace train step through the mesh path, each
@@ -225,6 +242,232 @@ DET_BATCH = 256
 DET_AGREE_SCENES = 20
 DET_AGREE_STEPS = 3
 DET_RTOL = 1e-4  # train_net on the card against the CPU, f32
+TRAINED_CHECKPOINT = "arcface_synth"  # the committed orbax tree, under outputs/checkpoints
+PATH_EMBEDDERS = {"serve_facenet": "facenet", "serve_trained": "trained"}  # else "arcface"
+K1_TRAINED_TOL = 6.0e-7  # K1 against its plain version on serve_trained's inputs
+ID_CLASSES, ID_RENDERS, ID_SIZE = 16, 24, 160  # the arcface_synth dataset's shape (synth16)
+# No seed 0-9 of the synthetic generator rebuilds the dataset the checkpoint
+# was trained on (JAX's restored model scores near chance on each): seed 0
+ID_SEED = 0
+ID_ENROLL_SEED = 1_000_000  # the fresh render of identity c draws from this + c
+# JAX's f32 embedder on the CPU, the same renders: correct answers of 384
+JAX_ID_CORRECT = 343
+# SHA-256 of each array of the committed tree (dtype string, shape, C-order
+# bytes), as the JAX package's load_checkpoint restores it
+TRAINED_DIGESTS = {
+    "batch_stats.backbone.bn1.mean":
+        "a3266723a0c8d9d9f697ed394be09c41336e4c0ba2c66caf85048c326c9ea54c",
+    "batch_stats.backbone.bn1.var":
+        "3ed48c41f579bc4b3efa1eefad73625402dfa4abe163b599e423b494b15478be",
+    "batch_stats.backbone.layer1_0.bn1.mean":
+        "936c0ec601ba98182153e5fdb54f1de3b4f53576e124c159388fc7377657b51d",
+    "batch_stats.backbone.layer1_0.bn1.var":
+        "966e3c635fa4e1cf00346c760083959f80362d8fe3fa44ac1c440a1bf57eb71f",
+    "batch_stats.backbone.layer1_0.bn2.mean":
+        "2d6440efec6ac09ab34774bf2f217d5d6e19459a5dbb48a1e398444a737a7dde",
+    "batch_stats.backbone.layer1_0.bn2.var":
+        "86956e3016b6dd632a78ed6f464d7f284cc1e4442f0e8c34a506c3d70340a206",
+    "batch_stats.backbone.layer1_1.bn1.mean":
+        "26bdb1f3494988cb45dd0be7416691efb534f1e06662f4bfab05763730cb43f2",
+    "batch_stats.backbone.layer1_1.bn1.var":
+        "b1140f34c3a2b1fbd8b25a302e8631e440bd1b1497ddac4fa78ee5a71f7cee59",
+    "batch_stats.backbone.layer1_1.bn2.mean":
+        "671b3a1087d5be19b24d8191737669129e2f630c8c62efd07acc4a5245260df3",
+    "batch_stats.backbone.layer1_1.bn2.var":
+        "635cd28722aafded063c2c2c8be977cd95386243a1624913af057214e1dc8004",
+    "batch_stats.backbone.layer2_0.bn1.mean":
+        "e34f1eb7a2dcee2bc526e3580235976f9f11c3fdc0352d716a092076dcf4a776",
+    "batch_stats.backbone.layer2_0.bn1.var":
+        "08bfeebe9ce85cb049e6c8b9787823c3ab83b4065e726d1442aa9c1cc26cd9dc",
+    "batch_stats.backbone.layer2_0.bn2.mean":
+        "d16da040577145be9175cfd9960cbfd7c6eb25a636cef645429d18484d511128",
+    "batch_stats.backbone.layer2_0.bn2.var":
+        "77c5a8e72aa5f85ed43cf150fc2371323def3ab352c7f4bc8dc534b7cdf5e938",
+    "batch_stats.backbone.layer2_0.downsample_bn.mean":
+        "254324f63e13ed469b672845b8dfce9e88c404ed409f5672aacd01b72209e09a",
+    "batch_stats.backbone.layer2_0.downsample_bn.var":
+        "1ae7144805083c60f7cb1bcc90b4a796f1aac19022f23a47e57b9fa4e9f67ba3",
+    "batch_stats.backbone.layer2_1.bn1.mean":
+        "5c70e6f9da81b46cdfe501e2d46d8a37346cf897a580665bb498bca1a55ac499",
+    "batch_stats.backbone.layer2_1.bn1.var":
+        "7f29123b88beb1c34d8eaec5e19f86e3ac906f6e71192212d9883bd4c07895b9",
+    "batch_stats.backbone.layer2_1.bn2.mean":
+        "17017d26acaac4c63d3eab48520c17c1fa1d6880831261eb11f5c038793afb7b",
+    "batch_stats.backbone.layer2_1.bn2.var":
+        "fd98afa594915dd5cf6bedbe0e0c2193ea5c4525366f4a318e7e4c937a3ccc0c",
+    "batch_stats.backbone.layer3_0.bn1.mean":
+        "fbbe18a3c96264eb2328ab102b6ff705f63564b07881e2759584de64dc11893d",
+    "batch_stats.backbone.layer3_0.bn1.var":
+        "679a3698b7fbb595f431ec800662093de4a4ac73a9837814fa9c7c7dc2198dba",
+    "batch_stats.backbone.layer3_0.bn2.mean":
+        "6ee19179a127dbc8a9e0ee8a894b1dd41ef682522de3051bc43fe4538ff65615",
+    "batch_stats.backbone.layer3_0.bn2.var":
+        "bbd624bf74ccf3f3ec6eb14161e6cd6d46c0ea32d42e3138e05ca98b7d872a2b",
+    "batch_stats.backbone.layer3_0.downsample_bn.mean":
+        "214a76256461e69b00c92f20bb6e038dd4b0dd4faa811d34d39f011e665649c8",
+    "batch_stats.backbone.layer3_0.downsample_bn.var":
+        "7b4a3245078eb1865fc2375b09a18d3d03489c10826c795c9247b80a273ab9ae",
+    "batch_stats.backbone.layer3_1.bn1.mean":
+        "2155836ddd27c2c300b73f8d2e0aaafde880f6fdaf4281182f8753fa137dc9e3",
+    "batch_stats.backbone.layer3_1.bn1.var":
+        "5db52d687b693f3f88810cf8f3d0c27ad76b99b8e3502ef189fcc39aa97dcb95",
+    "batch_stats.backbone.layer3_1.bn2.mean":
+        "5b957582ff7fc4b530fc02d6d8aa49de32666e8a37d0f411cd916d7805664b10",
+    "batch_stats.backbone.layer3_1.bn2.var":
+        "f8ec29922b45d6ba0a8da0c12a4207dc62cf568cad5b72af2efb14f6cf9421b3",
+    "batch_stats.backbone.layer4_0.bn1.mean":
+        "67186ad662f2802bf795d28a2dd8a4cff2989af6d18ab5327653260c7485868b",
+    "batch_stats.backbone.layer4_0.bn1.var":
+        "df7c8965ec2ed78b0a9f4699aab18f461154f595f10e8418db95b3787d74ed45",
+    "batch_stats.backbone.layer4_0.bn2.mean":
+        "97f19c29dbe6114acfd881bb51ab8b38980e93eb45fade9b9b4ba1e26c2d6f45",
+    "batch_stats.backbone.layer4_0.bn2.var":
+        "4ac9794c737ffcbb5cdab1cd8ed4ac85b7a7c1039bb56400d90e92876a83bb67",
+    "batch_stats.backbone.layer4_0.downsample_bn.mean":
+        "32b4e03b3938d16de7341ffcd5df761efe202e1fa5b784bc009144c02b36d593",
+    "batch_stats.backbone.layer4_0.downsample_bn.var":
+        "9e702354511cdbbf735b4c52e944fb8fad4ed2b1a366da8e19cc6a41c08dc8c8",
+    "batch_stats.backbone.layer4_1.bn1.mean":
+        "f0698334d4f026bd6063bd078a89feafe57fc46888dd9424e49591a2bdb6b174",
+    "batch_stats.backbone.layer4_1.bn1.var":
+        "42b72b5b21ccb4fcc83fbac7359ab37fa6c65fe75478b87a0ddc4f2b2a687041",
+    "batch_stats.backbone.layer4_1.bn2.mean":
+        "68adf5a8b1160e3c885d404d2a67af0015ddc7cefbb12eaab82b151ba7f5fef8",
+    "batch_stats.backbone.layer4_1.bn2.var":
+        "65d5ac809794088d72b735aa567fea5ee44eba1b70c5330c52be724e5338a079",
+    "batch_stats.bn.mean":
+        "7d699aadbebc1693e531cc26dd5f6cd6ee0bea89c09aa8b657fd60a2be276436",
+    "batch_stats.bn.var":
+        "98d0ca26850c2dca1798bce9c7467e762b7ed2a5e5eda42166141c92032bfe1b",
+    "params.arc_weight":
+        "807a70ea506188996cd0b29ebe0295c5b18d5b67129acf7bb2368180bf979e1c",
+    "params.backbone.bn1.bias":
+        "3623c03596c7b08013551f74516d9c5a76db869cf7925c1ae1fc8109e464c280",
+    "params.backbone.bn1.scale":
+        "c28241190bf76881bea719a8885d1c34bbb1b0bbf78219a3ee5946db0d6864b7",
+    "params.backbone.conv1.kernel":
+        "e311a57d715419cad2ab1dc2568f6236723754f63a15933ca5133c05c6ad32ea",
+    "params.backbone.layer1_0.bn1.bias":
+        "6ad71e0a362666d601cfac4541e75806036cc6b28e55a6c633d1693c643022ef",
+    "params.backbone.layer1_0.bn1.scale":
+        "a9ab0f30730c9730b39e5a8e7a5f5aa0940c5c90257c49990367ec21e75cf4bc",
+    "params.backbone.layer1_0.bn2.bias":
+        "67fa725d560b06f9e3c97f614d1f10eef1258b9b8ba017a3a1bbbaddae530dd2",
+    "params.backbone.layer1_0.bn2.scale":
+        "0d40e025e785ba8a203f07868a80300f7224391f5f1b25ed41bd012abe0a373a",
+    "params.backbone.layer1_0.conv1.kernel":
+        "4e56e90799213dfe705f2b4f9698424dfc59b240d1261bd231cc4ea2427d08b0",
+    "params.backbone.layer1_0.conv2.kernel":
+        "58a837ccebd0b12579cc0055eb3c7e871b5d1a18a4e4c7d3e8b6f563e617a201",
+    "params.backbone.layer1_1.bn1.bias":
+        "ba922e005fd8bf1f1227e2eab4d57407438d2cb06661b23ca857138144cac11b",
+    "params.backbone.layer1_1.bn1.scale":
+        "b9becc684ecba9f7f7fb775dd097cdaa04104a685ed477de92f0d9141898548f",
+    "params.backbone.layer1_1.bn2.bias":
+        "ac8addafc56701e6f12c2c5ba91423fdd9a35c49d40e9b4e8ce35df665db7713",
+    "params.backbone.layer1_1.bn2.scale":
+        "de3bfbd150890de79eadae956397ff63736c91b10aa50ba2357ecf1004fcc855",
+    "params.backbone.layer1_1.conv1.kernel":
+        "39665690242418afb14fa6a6f33bc8947c862e36ddd9cc3a51ad9e520ab47d9f",
+    "params.backbone.layer1_1.conv2.kernel":
+        "bd4320c8f5af21e9e2ee94e80e87942754ceabd2d3e13274fb8e2cc7748cd1ee",
+    "params.backbone.layer2_0.bn1.bias":
+        "0a90a8ca1abb321727bc303adb0e6e6ea9ab878ac36ec27a0e8ceed80323eb07",
+    "params.backbone.layer2_0.bn1.scale":
+        "47adf77ad6a3a935e4b4d713998181f802568f58011ec1ab5adb16ea0314d21d",
+    "params.backbone.layer2_0.bn2.bias":
+        "3d2402caee8532ff3a9551719e5999d5dedeeb28de86f2ce28e07a7695c1aa84",
+    "params.backbone.layer2_0.bn2.scale":
+        "abedfa4f46b1371bb7110493d11f7e3dff4f3744abe8eca5e412ef9ffef57e3f",
+    "params.backbone.layer2_0.conv1.kernel":
+        "ad23e137dd77966be4ae8cf8fad4894812b4321fd7b4ef607cad5ba2f8ac1f92",
+    "params.backbone.layer2_0.conv2.kernel":
+        "021e4130a72bbdb7bcfc867aae2de01bc6e40a79cb2445f4de459ca5895df308",
+    "params.backbone.layer2_0.downsample_bn.bias":
+        "3d2402caee8532ff3a9551719e5999d5dedeeb28de86f2ce28e07a7695c1aa84",
+    "params.backbone.layer2_0.downsample_bn.scale":
+        "1545c5ae489fd3387e2bafa204fcd2e4cd96121a307fd80d4598ca8b9326a76d",
+    "params.backbone.layer2_0.downsample_conv.kernel":
+        "02e228375bddfd87039e90a5531f4907db661164f503b27098a1d91da7327aa3",
+    "params.backbone.layer2_1.bn1.bias":
+        "4f0ef6e172d68012dff950f87ab2d2910a3517b701026b055d6b418fcc3d93ad",
+    "params.backbone.layer2_1.bn1.scale":
+        "a40e0dc10fef2e02254e8a10d506c1a693be2dea24551a17e1754b52c28deb62",
+    "params.backbone.layer2_1.bn2.bias":
+        "10d1345839b7198ab29fe656d30a21dbbb65589f8a7f4362a53f1729b47815ab",
+    "params.backbone.layer2_1.bn2.scale":
+        "97ed7483cc5f3aeb69567062c36dfbd6d8ed664665e61c63a077050d7a8adf49",
+    "params.backbone.layer2_1.conv1.kernel":
+        "6f5c03f7a28db541f55d0add80e82ef1d60adac8bf13cb9adcd7435bd4e04311",
+    "params.backbone.layer2_1.conv2.kernel":
+        "d39c711817b706ec54e1461dcf6f15ceaa41c634a075ff3113fb67a1ee8ca892",
+    "params.backbone.layer3_0.bn1.bias":
+        "343e21b6ecf35a1aa232dcd03507cf7e318adfccb57056a1683e17b45ce75745",
+    "params.backbone.layer3_0.bn1.scale":
+        "5208301f00b595aeac107c2f33ebb88eae0571729dfd7e69ff41a36c0c4089ed",
+    "params.backbone.layer3_0.bn2.bias":
+        "8104d4f656f9e6946dea520c92114dd4be48307c4c12c21b6a6eabbe75cabccc",
+    "params.backbone.layer3_0.bn2.scale":
+        "8f0c1db8b62aabaf052235b163be19626a2dc6674f9aedbc168cd570190cbe50",
+    "params.backbone.layer3_0.conv1.kernel":
+        "e2e6513d6bbc2589332a130bca772cbcc7d0c0f29291c1ae3fec8f1b3861baaf",
+    "params.backbone.layer3_0.conv2.kernel":
+        "43c84a85ecf1b9b46cafd5fbf7a2207e5777fce1402d6f58667c66dfbeda921a",
+    "params.backbone.layer3_0.downsample_bn.bias":
+        "8104d4f656f9e6946dea520c92114dd4be48307c4c12c21b6a6eabbe75cabccc",
+    "params.backbone.layer3_0.downsample_bn.scale":
+        "6c61c7c8508a5aee0e1ce7ca256e4d0b22e91a8137b0929fe234d8d1e962bf2e",
+    "params.backbone.layer3_0.downsample_conv.kernel":
+        "2274ad897420b2b8d7c7a5894607b8f75451ae71a2568b1c8f0c2fc6cb582e4c",
+    "params.backbone.layer3_1.bn1.bias":
+        "b8d1ff4670672b57767fc738b6367b0ba6bc56c32e2df545c08658f9465b7d48",
+    "params.backbone.layer3_1.bn1.scale":
+        "5d52bd16f3834fba41b0c9b177a8333056d0aa786902bd54473694571d5d66cf",
+    "params.backbone.layer3_1.bn2.bias":
+        "f6398d81696c1feb0bc8bd8febac0a3d08574140a7639fb7e27e28921a01bf41",
+    "params.backbone.layer3_1.bn2.scale":
+        "ab879f5d8570c2b1c3b9c2c13cf6d4eaf6bc64fbad9601c4a02cf2f4a3844fd3",
+    "params.backbone.layer3_1.conv1.kernel":
+        "41ee804bbd819a852fd6e340fe2cc294b07537835d23e169a65c2f8ffde0d290",
+    "params.backbone.layer3_1.conv2.kernel":
+        "d4e80c3f1a75fb975312012b6cd3180285c7400d9a4f7129585527778e47221c",
+    "params.backbone.layer4_0.bn1.bias":
+        "3260a3af3afe10b9c4bd281a99e54ec871133912b352446af5f1a81dd1a4f6ba",
+    "params.backbone.layer4_0.bn1.scale":
+        "c4baa5f27ecd666c2e4686af28e541fc79b31d682b9d6c69123981aa145c2649",
+    "params.backbone.layer4_0.bn2.bias":
+        "de07557d28a77380d51e1e2ddade7e9a171f4e88a0888a7c09cdd632d9f83ab4",
+    "params.backbone.layer4_0.bn2.scale":
+        "74aaae8f38a15f2c5edbbe9cdff5c5738597efddd50e8afaf0b42a8b48e1ef96",
+    "params.backbone.layer4_0.conv1.kernel":
+        "e35b7ff94f85a3a355a4d6bbb5402f937b064360a77e230a06a04abf019b3ef6",
+    "params.backbone.layer4_0.conv2.kernel":
+        "7dbf604196c2ebdf35f2b876a2f944ebbd14ce5a468b3b6c932998d3325ca868",
+    "params.backbone.layer4_0.downsample_bn.bias":
+        "de07557d28a77380d51e1e2ddade7e9a171f4e88a0888a7c09cdd632d9f83ab4",
+    "params.backbone.layer4_0.downsample_bn.scale":
+        "40e2ef313ec373aac43ec2d6d8b0463cdf82969be6b30791b6deb396967598f4",
+    "params.backbone.layer4_0.downsample_conv.kernel":
+        "c1cd3eda0d0103b53dc7dc01804c180c1681db687a66622bd4c8e12e52370d00",
+    "params.backbone.layer4_1.bn1.bias":
+        "f18e3731d667ef97c28cd3e025df7779030fb40a62c1a744e242602597ad3fde",
+    "params.backbone.layer4_1.bn1.scale":
+        "b3b27998011faa6b7e9bc415709a90c0278db0c567387f3a4189ebff432fe150",
+    "params.backbone.layer4_1.bn2.bias":
+        "5b33a232acc91a270f13447a86794ebc1c6f5108380e22cc21b557159f8bb176",
+    "params.backbone.layer4_1.bn2.scale":
+        "4908ddf6aedecb3d4d5d6b6d7a82f5b83e38356f262fe30162e37d2e855a05ea",
+    "params.backbone.layer4_1.conv1.kernel":
+        "669e4f32bfd7beb1e5411d678b9fbe61a06e894eb892e16d3f94d2314df436ca",
+    "params.backbone.layer4_1.conv2.kernel":
+        "7a2ba87877a46a9d93feebe125de1dd399c0c0c9184391eba20aa5d4bddf108a",
+    "params.bn.bias":
+        "f7ce61a443486937a1dd2b7577fc1184e3adae60121af0d238bc90f291c19eb8",
+    "params.bn.scale":
+        "05712f4107b4bc53c7b6647366355d90ff986edf11f3120866df97d62850e539",
+    "params.embedding.kernel":
+        "1f9e7e228e0f4f6d83621585ca4bf12589426903731ccc95320c3b3a9987d490",
+}
 
 
 def _card() -> str:
@@ -554,7 +797,8 @@ def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg, precise_align=Fal
     """bench.py's pipeline: the committed detector, and a full-width embedder
     from seed 1, the ResNet-18 ArcFace or (``embedder="facenet"``)
     InceptionResnetV1 (repeats 5, 10, 5; the VGGFace2 file is not in the
-    repository); over ``mesh`` when one is given."""
+    repository), or (``embedder="trained"``) the committed trained ArcFace;
+    over ``mesh`` when one is given."""
     from facerec_torch.config import ServeConfig
     from facerec_torch.detect.mtcnn import MTCNN
     from facerec_torch.detect.weights import load_detector_params
@@ -566,8 +810,15 @@ def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg, precise_align=Fal
     det = MTCNN(frame_hw, min_face_size=40, max_faces=max_faces, k_pnet=64, k_rnet=32,
                 dtype=dtype, input_range="255", device=dev)
     det.load_jax_params(load_detector_params())
-    build = {"arcface": build_embedder, "facenet": build_facenet_embedder}[embedder]
-    emb = build(dtype=dtype, seed=1, device=dev)
+    if embedder == "trained":  # build_default_pipeline's loading path
+        from facerec_torch.config import CHECKPOINTS_DIR
+        from facerec_torch.serve.app import _embedder_checkpoint
+
+        ck = _embedder_checkpoint(CHECKPOINTS_DIR / TRAINED_CHECKPOINT)
+        emb = build_embedder(checkpoint=ck, dtype=dtype, device=dev)
+    else:
+        build = {"arcface": build_embedder, "facenet": build_facenet_embedder}[embedder]
+        emb = build(dtype=dtype, seed=1, device=dev)
     return FacePipeline(cfg, frame_hw, det, emb, embed_dim=512, device=dev,
                         precise_align=precise_align, mesh=mesh)
 
@@ -764,6 +1015,113 @@ def enroll_device(seed: int):
         pipe.gallery.add_many_device([f"id_{i}" for i in range(n)],
                                      torch.randn(n, 512, generator=gen, device=pipe.device))
     return enroll
+
+
+def _digest(a) -> str:
+    import hashlib
+
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    return hashlib.sha256(f"{a.dtype.str}{a.shape}".encode() + a.tobytes()).hexdigest()
+
+
+def read_trained() -> dict:
+    """The committed orbax tree through the port's reader, each array held
+    against its pinned digest; then the conversion ``load_checkpoint``
+    makes. Fails if JAX was imported."""
+    from facerec_torch.config import CHECKPOINTS_DIR
+    from facerec_torch.train.checkpoints import load_checkpoint
+    from facerec_torch.train.orbax import read_orbax_tree
+
+    t0 = time.perf_counter()
+    tree = read_orbax_tree(CHECKPOINTS_DIR / TRAINED_CHECKPOINT / "best")
+    read_s = time.perf_counter() - t0
+
+    def flat(d, prefix=""):
+        for k, v in d.items():
+            yield from (flat(v, f"{prefix}{k}.") if isinstance(v, dict) else [(prefix + k, v)])
+
+    arrays = dict(flat(tree))
+    if arrays.keys() != TRAINED_DIGESTS.keys():
+        raise AssertionError(f"the tree's arrays differ from the pinned ones: "
+                             f"{sorted(arrays.keys() ^ TRAINED_DIGESTS.keys())[:5]}")
+    bad = [k for k, a in arrays.items() if _digest(a) != TRAINED_DIGESTS[k]]
+    if bad:
+        raise AssertionError(f"{len(bad)} arrays differ from their pinned digests: {bad[:5]}")
+    t0 = time.perf_counter()
+    state = load_checkpoint(CHECKPOINTS_DIR / TRAINED_CHECKPOINT)["model"]
+    load_s = time.perf_counter() - t0
+    out = {"arrays": len(arrays), "bytes": sum(a.nbytes for a in arrays.values()),
+           "read_s": read_s, "load_checkpoint_s": load_s, "digests_match": True,
+           "classes": int(state["arc_weight"].shape[0]), "jax_imported": "jax" in sys.modules}
+    print("serve_trained read: " + json.dumps(out), flush=True)
+    if out["jax_imported"]:
+        raise AssertionError("reading the orbax tree imported jax")
+    return out
+
+
+def identify_trained(dev, pipe, card: str) -> dict:
+    """Closed-set identification over the checkpoint's 16 identities: one
+    fresh render each enrolled in a ``GalleryStore`` on the card, the
+    ``ID_CLASSES x ID_RENDERS`` renders of ``make_synthetic_arrays`` queried
+    through K1 (top 5, the first counted), every image ImageNet-normalised as
+    the model was trained. The trained embedder in f32 (the bar), the served
+    bf16 one (``pipe``'s) and a random-init one (seed 1, f32)."""
+    import numpy as np
+    import torch
+
+    from facerec_torch.config import CHECKPOINTS_DIR
+    from facerec_torch.data.datasets import _imagenet_normalize
+    from facerec_torch.data.synthetic import _identity_params, make_synthetic_arrays, render_face
+    from facerec_torch.models.arcface import build_embedder
+    from facerec_torch.ops.gallery import gallery_topk
+    from facerec_torch.serve.app import _embedder_checkpoint
+    from facerec_torch.serve.gallery import GalleryStore
+
+    t0 = time.perf_counter()
+    renders, labels = make_synthetic_arrays(ID_CLASSES, ID_RENDERS, ID_SIZE, ID_SEED)
+    rng = np.random.default_rng(ID_SEED)  # make_synthetic_arrays's identities
+    ids = [_identity_params(rng, skin_lum_range=(0.25, 1.0)) for _ in range(ID_CLASSES)]
+    fresh = np.stack([render_face(p, ID_SIZE, np.random.default_rng(ID_ENROLL_SEED + c))
+                      for c, p in enumerate(ids)])
+    xq = torch.from_numpy(_imagenet_normalize(renders)).to(dev)
+    xg = torch.from_numpy(_imagenet_normalize(fresh)).to(dev)
+    names = [f"person_{c:03d}" for c in range(ID_CLASSES)]
+    ck = _embedder_checkpoint(CHECKPOINTS_DIR / TRAINED_CHECKPOINT)
+
+    def correct(embedder, dtype) -> tuple[int, dict]:
+        with torch.no_grad():
+            eq, eg = embedder.embed(xq), embedder.embed(xg)
+        store = GalleryStore(capacity=SERVE_ROWS, dtype=dtype, device=dev)
+        store.add_many_device(names, eg)
+        _zero_launches()
+        _, idx = gallery_topk(eq, store.embeddings, store.count_device, k=5)
+        torch.cuda.synchronize()
+        launches = _launches()
+        if launches["gallery_topk"] != 1:
+            raise AssertionError(f"identification did not go through K1 once: {launches}")
+        err = _k1_case(f"identify {str(dtype)[6:]}", eq, store.embeddings, store.count, 5,
+                       2e-3 if dtype == torch.bfloat16 else 1e-4)[0]
+        return int((idx[:, 0].cpu().numpy() == labels).sum()), {"k1_max_abs_err": err}
+
+    trained, held = correct(build_embedder(checkpoint=ck, dtype=torch.float32, device=dev),
+                            torch.float32)
+    served, _ = correct(pipe.embedder, pipe.gallery.dtype)
+    random_init, _ = correct(build_embedder(dtype=torch.float32, seed=1, device=dev),
+                             torch.float32)
+    n = len(labels)
+    out = {"queries": n, "identities": ID_CLASSES, "seed": ID_SEED,
+           "correct_f32": trained, "accuracy_f32": trained / n,
+           "correct_served_bf16": served, "accuracy_served_bf16": served / n,
+           "correct_random_init": random_init, "accuracy_random_init": random_init / n,
+           "jax_cpu_correct": JAX_ID_CORRECT, "jax_cpu_accuracy": JAX_ID_CORRECT / n,
+           "bar_correct": JAX_ID_CORRECT - 1, **held,
+           "phase_s": time.perf_counter() - t0, "card": card}
+    print("serve_trained identify: " + json.dumps(out), flush=True)
+    if not (trained >= JAX_ID_CORRECT - 1 and trained > random_init and served > random_init):
+        raise AssertionError(f"the trained embedder does not identify as it should: {out}")
+    return out
 
 
 def device_busy(step, steps: int = 3) -> dict:
@@ -1914,7 +2272,7 @@ def demo(dev, bench_pipe, frames) -> tuple[dict, dict]:
     transfer = bench_pipe.benchmark_transfer(frames, iters=6, warmup=1)
     stats = {"route": "build_default_pipeline + FaceDemo (packed step, batch 1)",
              "frame_hw": list(FRAME_HW), "max_faces": pipe.config.max_faces,
-             "embedder": "random ArcFace (no port checkpoint of arcface_synth)",
+             "embedder": "the trained arcface_synth (orbax best, bf16)",
              **fps, "pipelined_gain": fps["demo_fps"] / fps["demo_fps_serial"],
              "packed_against_identify": agree, "kernels_held": held,
              "bench_faces_per_s": bench["faces_per_sec"],
@@ -2498,12 +2856,14 @@ def main() -> int:
     for path, capacity, enroll in (("serve", SERVE_ROWS, serve_enroll),
                                    ("serve_1048576", BIG_ROWS, enroll_device(5)),
                                    ("serve_precise", SERVE_ROWS, enroll_host(rng)),
-                                   ("serve_facenet", SERVE_ROWS, enroll_host(rng))):
+                                   ("serve_facenet", SERVE_ROWS, enroll_host(rng)),
+                                   ("serve_trained", SERVE_ROWS, enroll_host(rng))):
         t0 = time.perf_counter()
+        if path == "serve_trained":
+            trained_read = read_trained()
         launches[path], stats, pipes[path] = serve(
             dev, frames, capacity, enroll, path, agree=path in ("serve", "serve_facenet"),
-            precise=path == "serve_precise",
-            embedder="facenet" if path == "serve_facenet" else "arcface")
+            precise=path == "serve_precise", embedder=PATH_EMBEDDERS.get(path, "arcface"))
         served[path] = {"phase_s": time.perf_counter() - t0} | {key: stats[key] for key in (
             "embedder", "gallery_rows", "gallery_count", "faces_per_sec", "sec_per_batch",
             "host_sec_per_batch", "detected", "detected_p090", "detected_expected",
@@ -2512,13 +2872,23 @@ def main() -> int:
                                                        if k in stats} | {"card": card}),
               flush=True)
         held[path] = stats["kernels_held"]
-        if path not in ("serve", "serve_facenet"):
+        if path == "serve_trained" and held[path]["gallery_topk"] > K1_TRAINED_TOL:
+            raise AssertionError(f"K1 on serve_trained's inputs: max abs error "
+                                 f"{held[path]['gallery_topk']} > {K1_TRAINED_TOL}")
+        if path not in ("serve", "serve_facenet", "serve_trained"):
             del pipes[path]
         torch.cuda.empty_cache()
     print("serve_facenet beside serve: " + json.dumps({p: {k: served[p][k] for k in (
         "embedder", "phase_s", "faces_per_sec", "sec_per_batch", "stages_ms",
         "device_busy_share")}
         for p in ("serve", "serve_facenet")} | {"card": card}), flush=True)
+    identified = identify_trained(dev, pipes.pop("serve_trained"), card)
+    print("serve_trained beside serve: " + json.dumps({p: {k: served[p][k] for k in (
+        "embedder", "phase_s", "faces_per_sec", "sec_per_batch", "stages_ms", "detected",
+        "device_busy_share")} for p in ("serve", "serve_trained")}
+        | {k: trained_read[k] for k in ("read_s", "load_checkpoint_s")}
+        | {"accuracy_f32": identified["accuracy_f32"], "card": card}), flush=True)
+    torch.cuda.empty_cache()
     mesh_launches, mesh_held, mesh_stats = mesh(dev, frames, pipes["serve"], serve_enroll.rows,
                                                 card)
     launches.update(mesh_launches)
@@ -2554,6 +2924,8 @@ def main() -> int:
     print("demo: " + json.dumps(demo_stats | {"card": card}), flush=True)
     torch.cuda.empty_cache()
     rows = kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held)
+    if "jax" in sys.modules:
+        raise AssertionError("the run imported jax")
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)
     print(json.dumps({"kernels": rows, "card": card}), flush=True)
     print(card, flush=True)

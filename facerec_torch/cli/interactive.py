@@ -5,7 +5,8 @@ The same 9 options: preprocess, preprocessing visualization, train (the
 full wizard), evaluate, the hyperopt wizard, cross-validation (with warm
 start), compare-all, download, exit. Every wizard builds the typed configs
 the command line builds, and every action runs on the menu's ``device``
-(default: the CUDA card). Download is not ported: it needs the network.
+(default: the CUDA card). Download fetches through ``kagglehub``, which
+needs the network.
 
     python -m facerec_torch.cli.main [--device cpu] interactive
 """
@@ -239,9 +240,9 @@ def interactive_menu(device: str | None = None) -> int:
                 compare_all_models(_choose_dataset(), epochs=_ask_int("epochs per model", 10),
                                    device=dev)
             elif idx == 8:
-                from facerec_torch.cli.main import NOT_PORTED
+                from facerec_torch.data.download import download_all_datasets
 
-                print(f"download is not ported: {NOT_PORTED['download']}")
+                download_all_datasets()
             elif idx == 9:
                 return 0
         except KeyboardInterrupt:

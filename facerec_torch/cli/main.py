@@ -6,11 +6,12 @@ The JAX package's subcommands, flags and defaults, plus one top-level
 
     python -m facerec_torch.cli.main [--device cuda|cpu] <command> [flags]
 
-``interactive`` (also the default with no command), ``preprocess``,
-``train`` (with ``--lr-finder``), ``evaluate``, ``predict``, ``cv``,
-``hyperopt``, ``visualize``, ``compare-all``, ``list-models``,
-``check-gpu`` and ``demo`` (headless) run. ``download`` and ``bench`` keep
-their flags but exit 2 with a line that names what they wait for.
+``interactive`` (also the default with no command), ``download``,
+``preprocess``, ``train`` (with ``--lr-finder``), ``evaluate``,
+``predict``, ``cv``, ``hyperopt``, ``visualize``, ``compare-all``,
+``list-models``, ``check-gpu`` and ``demo`` (the Streamlit UI where
+``streamlit`` is installed, else headless) run. ``bench`` keeps its flags
+but exits 2 with a line that names what it waits for.
 Checkpoints and outputs go under ``$FACEREC_ROOT/outputs`` (default: the
 repository).
 
@@ -31,7 +32,6 @@ from pathlib import Path
 
 # command -> why it does not run in the port yet
 NOT_PORTED = {
-    "download": "the downloader needs the network (kagglehub) and is not ported",
     "bench": "bench is the JAX package's bench.py; the port runs end to end in chip_smoke.py "
              "until a BENCHMARK.json exists",
 }
@@ -46,7 +46,7 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="command")
 
     sub.add_parser("interactive", help="interactive menu")
-    sub.add_parser("demo", help="live demo (headless, on a synthetic camera)")
+    sub.add_parser("demo", help="live demo (Streamlit UI, else headless on a synthetic camera)")
     sub.add_parser("check-gpu", help="report accelerator status")
     sub.add_parser("list-models", help="list model types")
     sub.add_parser("bench", help="run the end-to-end benchmark")
@@ -184,6 +184,15 @@ def main(argv: list[str] | None = None) -> int:
         from facerec_torch.cli.interactive import interactive_menu
 
         return interactive_menu(dev)
+
+    if cmd == "download":
+        from facerec_torch.data.download import download_all_datasets, download_dataset
+
+        if args.dataset:
+            download_dataset(args.dataset)
+        else:
+            download_all_datasets()
+        return 0
 
     if cmd == "preprocess":
         from facerec_torch.config import PreprocessingConfig

@@ -35,6 +35,7 @@ PHASES = (
     ("serve_1048576", "serve_1048576: {"),
     ("serve_precise", "serve_precise: {"),
     ("serve_facenet", "serve_facenet: {"),
+    ("serve_trained", "serve_trained beside serve: "),
     ("mesh", "mesh: phase"),
     ("fold", "fold: phase"),
     ("train_eval_zoo_tune", "tune: phase"),

@@ -1,6 +1,6 @@
-"""The live face-recognition demo, headless (counterpart of
-``facerec_tpu/serve/app.py``; its Streamlit UI, ``app_ui.py``, is not
-ported).
+"""The live face-recognition demo (counterpart of ``facerec_tpu/serve/app.py``;
+the Streamlit UI on top of it is ``app_ui.py``, which ``run_demo`` launches
+where ``streamlit`` is installed).
 
 A capture thread feeds frames to the packed serve step (``FacePipeline.
 dispatch_demo``), IOU tracking gives faces stable ids, a reference gallery
@@ -31,14 +31,14 @@ from facerec_torch import resolve_device
 from facerec_torch.config import CHECKPOINTS_DIR, FACE_REFERENCES_DIR, ServeConfig, logger
 from facerec_torch.serve.gallery import GalleryStore
 from facerec_torch.serve.pipeline import FacePipeline, FaceTracker
-from facerec_torch.train.checkpoints import PAYLOAD
 
 
-def _port_checkpoint(model_dir: Path) -> Path | None:
-    """``best``, else ``final``, of a checkpoint the port's trainer wrote
-    (``torch.save`` payload); None for a missing or orbax-only directory."""
+def _embedder_checkpoint(model_dir: Path) -> Path | None:
+    """``best``, else ``final``, of ``model_dir`` (the JAX demo's order), as
+    the port's trainer or the JAX trainer wrote it; None when it has
+    neither."""
     for name in ("best", "final"):
-        if (model_dir / name / PAYLOAD).exists():
+        if (model_dir / name).is_dir():
             return model_dir / name
     return None
 
@@ -53,11 +53,11 @@ def build_default_pipeline(frame_hw: tuple[int, int] = (480, 640),
     random detector without weights), and an embedder in bf16. The embedder
     is, in this order: an InceptionResnetV1 from the facenet-pytorch state
     dict (a torch-pickled ``.pt``) that ``FACEREC_FACENET_WEIGHTS`` names;
-    an ArcFace from the port checkpoint ``CHECKPOINTS_DIR/
-    <embedder_checkpoint>``, its class-centre rows sized from the
-    checkpoint (``tools/export_embedder.py`` writes one from the committed
-    orbax ``arcface_synth``, which only the JAX package reads); else, with a
-    warning, a random ArcFace, as the JAX demo does without a checkpoint.
+    an ArcFace from the checkpoint ``CHECKPOINTS_DIR/<embedder_checkpoint>``
+    (``best``, else ``final``; a port checkpoint or the JAX trainer's orbax
+    tree, such as the committed ``arcface_synth``), its class-centre rows
+    sized from the checkpoint; else, with a warning, a random ArcFace, as the
+    JAX demo does without a checkpoint.
     The gallery saved in ``face_references/`` is loaded.
 
     ``input_range``: the pixel scale of the frames ("255" for camera
@@ -90,11 +90,10 @@ def build_default_pipeline(frame_hw: tuple[int, int] = (480, 640),
 
         embedder = build_facenet_embedder(facenet_path, dtype=torch.bfloat16, device=dev)
     else:
-        ck = (_port_checkpoint(CHECKPOINTS_DIR / embedder_checkpoint)
+        ck = (_embedder_checkpoint(CHECKPOINTS_DIR / embedder_checkpoint)
               if embedder_checkpoint else None)
         if ck is None:
-            logger.warning("no facerec_torch checkpoint %r under %s (tools/export_embedder.py "
-                           "writes one from the orbax checkpoint): using a random-init ArcFace "
+            logger.warning("no embedder checkpoint %r under %s: using a random-init ArcFace "
                            "embedder", embedder_checkpoint, CHECKPOINTS_DIR)
         embedder = build_embedder(checkpoint=ck, dtype=torch.bfloat16, device=dev)
 
@@ -320,14 +319,26 @@ def synthetic_frame_source(frame_hw: tuple[int, int] = (480, 640), seed: int = 0
 
 
 def run_demo(device: str | torch.device | None = None) -> int:
-    """20 headless synthetic frames through the demo, one line of names
-    each (the Streamlit UI is not ported)."""
-    pipe = build_default_pipeline(device=device)
-    demo = FaceDemo(pipe, frame_source=synthetic_frame_source(pipe.frame_hw))
-    for _ in range(20):
-        faces = demo.process_frame(demo.frame_source())
-        print(f"frame: {len(faces)} faces", [f["name"] for f in faces])
-    return 0
+    """The Streamlit UI (``app_ui.py``, in a ``streamlit run`` process) where
+    ``streamlit`` is installed; else 20 headless synthetic frames through
+    the demo, one line of names each."""
+    try:
+        import streamlit  # noqa: F401
+    except ImportError:
+        print("streamlit is not installed; running 20 headless synthetic frames instead")
+        pipe = build_default_pipeline(device=device)
+        demo = FaceDemo(pipe, frame_source=synthetic_frame_source(pipe.frame_hw))
+        for _ in range(20):
+            faces = demo.process_frame(demo.frame_source())
+            print(f"frame: {len(faces)} faces", [f["name"] for f in faces])
+        return 0
+    import subprocess
+    import sys
+
+    cmd = [sys.executable, "-m", "streamlit", "run", str(Path(__file__).with_name("app_ui.py"))]
+    if device is not None:
+        cmd += ["--", "--device", str(device)]
+    return subprocess.call(cmd)
 
 
 def measure_demo_fps(n_frames: int = 40, device: str | torch.device | None = None) -> dict:

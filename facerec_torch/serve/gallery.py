@@ -7,7 +7,8 @@ device as an int32 scalar, which the match kernel reads from device memory:
 the serve step needs no host read for it. Persistence keeps the on-disk
 contract of the JAX package (a pickle mapping name -> f32 embedding, plus
 one JPEG per reference face), so a gallery saved by either package loads in
-the other. The port updates the matrix in place. Normalisation is always
+the other; ``load`` also reads the original reference app's list pickle,
+which the JAX package does not. The port updates the matrix in place. Normalisation is always
 in f32: on the host for ``add``/``add_many``, on the device for
 ``add_many_device``.
 
@@ -214,8 +215,11 @@ class GalleryStore:
              dtype: torch.dtype | str = torch.float32,
              device: str | torch.device | None = None,
              mesh: Mesh | None = None) -> "GalleryStore":
-        """Load a gallery this package or ``facerec_tpu`` saved (the pickle
-        is unpickled: load only galleries you wrote)."""
+        """Load a gallery this package or ``facerec_tpu`` saved (a dict name
+        -> embedding), or one the original reference app saved (a list of
+        ``{"name", "embedding_numpy", "image_path"}`` dicts, whose repeated
+        names stay separate rows). The pickle is unpickled: load only
+        galleries you wrote."""
         d = Path(directory or FACE_REFERENCES_DIR)
         pkl = d / "face_references.pkl"
         if not pkl.exists():
@@ -224,8 +228,13 @@ class GalleryStore:
             refs = pickle.load(f)
         if not refs:
             return cls(capacity=capacity, dtype=dtype, device=device, mesh=mesh)
-        rows = [np.asarray(e, np.float32).reshape(-1) for e in refs.values()]
+        if isinstance(refs, dict):
+            names, embs = list(refs), list(refs.values())
+        else:
+            names = [r["name"] for r in refs]
+            embs = [r["embedding_numpy"] for r in refs]
+        rows = [np.asarray(e, np.float32).reshape(-1) for e in embs]
         store = cls(capacity=capacity, dim=rows[0].shape[0], dtype=dtype, device=device,
                     mesh=mesh)
-        store.add_many([str(n) for n in refs], np.stack(rows))
+        store.add_many([str(n) for n in names], np.stack(rows))
         return store

@@ -7,6 +7,12 @@ Layout, as the JAX trainer's:
     best/            state.pt ({"model": state dict}) + metadata.json
     final/
     epoch_<n>/       also the optimizer state (the resume source)
+
+``load_checkpoint`` also reads a checkpoint the JAX trainer wrote (an orbax
+tree: ``manifest.ocdbt`` and ``_CHECKPOINT_METADATA``, no ``state.pt``)
+through ``facerec_torch.train.orbax``, converting its ``params`` and
+``batch_stats`` with ``facerec_torch.convert.from_jax`` for the
+``model_type`` its ``metadata.json`` records.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ import torch
 import torch.nn as nn
 
 PAYLOAD = "state.pt"
+ORBAX_MARKERS = ("manifest.ocdbt", "_CHECKPOINT_METADATA")
 
 
 def _cpu(tree: Any) -> Any:
@@ -56,9 +63,39 @@ def save_checkpoint(
     return path
 
 
+def is_orbax_checkpoint(path: str | Path) -> bool:
+    """A directory the JAX trainer wrote: the orbax markers, no ``state.pt``."""
+    p = Path(path)
+    return not (p / PAYLOAD).exists() and all((p / m).exists() for m in ORBAX_MARKERS)
+
+
+def _float32(tree: Any) -> Any:
+    """A tree's bfloat16 leaves (torch tensors) as f32 numpy arrays."""
+    if isinstance(tree, torch.Tensor):
+        return tree.float().numpy()
+    if isinstance(tree, Mapping):
+        return {k: _float32(v) for k, v in tree.items()}
+    return tree
+
+
+def _load_orbax(path: Path) -> dict:
+    from facerec_torch.convert import from_jax
+    from facerec_torch.train.orbax import read_orbax_tree
+
+    meta_file = path / "metadata.json"
+    meta = json.loads(meta_file.read_text()) if meta_file.exists() else {}
+    if "model_type" not in meta:
+        raise ValueError(f"{path}: an orbax checkpoint whose metadata.json names no "
+                         "model_type, which the conversion needs")
+    tree = read_orbax_tree(path)
+    variables = _float32({"params": tree["params"], "batch_stats": tree.get("batch_stats", {})})
+    return {"model": from_jax(variables, meta["model_type"]), "metadata": meta}
+
+
 def load_checkpoint(ckpt_dir: str | Path, name: str | None = None) -> dict:
     """``{"model", ["opt_state"], "metadata"}`` of a checkpoint, on the CPU;
-    with ``name`` None, ``best`` and then ``final``."""
+    with ``name`` None, ``best`` and then ``final``. A checkpoint of the JAX
+    trainer gives its model state dict and metadata (no ``opt_state``)."""
     base = Path(ckpt_dir)
     if name is None:
         for cand in ("best", "final"):
@@ -68,6 +105,8 @@ def load_checkpoint(ckpt_dir: str | Path, name: str | None = None) -> dict:
         else:
             raise FileNotFoundError(f"no best/final checkpoint under {base}")
     path = (base / name).resolve()
+    if is_orbax_checkpoint(path):
+        return _load_orbax(path)
     tree = torch.load(path / PAYLOAD, map_location="cpu", weights_only=True)
     meta_file = path / "metadata.json"
     if meta_file.exists():
@@ -78,7 +117,13 @@ def load_checkpoint(ckpt_dir: str | Path, name: str | None = None) -> dict:
 def restore_into(ckpt_dir: str | Path, name: str, model: nn.Module, opt_state=None) -> tuple[dict, dict]:
     """Load a checkpoint into ``model`` and, when the checkpoint recorded
     one (``has_opt_state``), into ``opt_state`` (an object with
-    ``load_state_dict``). Returns ``(tree, metadata)``."""
+    ``load_state_dict``). Returns ``(tree, metadata)``. A checkpoint of the
+    JAX trainer restores the model only: asked for ``opt_state``, it
+    raises, optax's state having no counterpart in ``OptaxChain``'s."""
+    if opt_state is not None and is_orbax_checkpoint(Path(ckpt_dir) / name):
+        raise ValueError(f"{Path(ckpt_dir) / name} is a checkpoint of the JAX trainer: the "
+                         "port does not resume its optimizer state; restore the model alone "
+                         "(opt_state=None) and start a new run")
     tree = load_checkpoint(ckpt_dir, name)
     meta = tree.pop("metadata", {})
     model.load_state_dict(tree["model"])

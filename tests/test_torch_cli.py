@@ -3,9 +3,10 @@ against the JAX package's (``facerec_tpu/cli``) on the CPU: the parser's
 surface (JAX's, plus ``--device`` and with ``check-gpu`` for ``check-tpu``),
 the train config built from the same arguments, ``list-models``, smoke runs
 of every ported command with ``--device cpu`` at a tiny size (outputs under
-a temporary root), the unported commands' refusal (``download`` and
-``bench``; ``interactive`` and ``preprocess`` run since the data side was
-ported: tests/test_torch_interactive.py), the pretrained-ensemble
+a temporary root), the unported command's refusal (``bench``; ``download``
+runs since the downloader was ported: tests/test_torch_download.py, and
+``interactive`` and ``preprocess`` since the data side was:
+tests/test_torch_interactive.py), the pretrained-ensemble
 entry of ``compare_all_models`` and ``python -m facerec_torch.cli.main``."""
 
 import argparse
@@ -91,11 +92,9 @@ def test_check_gpu_on_the_cpu(capsys):
     assert info["backend"] == "cpu" and info["device_count"] == 1 and info["devices"] == ["cpu"]
 
 
-@pytest.mark.parametrize("argv", [["download"], ["download", "--dataset", "dataset1"],
-                                  ["download", "--dataset", "dataset2"],
-                                  ["download", "--dataset", "lfw"], ["bench"]])
+@pytest.mark.parametrize("argv", [["bench"]])
 def test_unported_commands_exit_2(argv, capsys):
-    assert sorted(NOT_PORTED) == ["bench", "download"]
+    assert sorted(NOT_PORTED) == ["bench"]
     assert main(["--device", "cpu"] + argv) == 2
     cmd = argv[0]
     err = capsys.readouterr().err.strip().splitlines()

@@ -18,6 +18,7 @@ from facerec_torch.serve.gallery import GalleryStore
 from facerec_torch.serve.pipeline import FacePipeline
 from facerec_torch.train.checkpoints import save_checkpoint
 from facerec_tpu.serve.app import synthetic_frame_source as jax_synthetic_frame_source
+from facerec_tpu.train.checkpoints import load_checkpoint as jax_load_checkpoint
 
 CFG = ServeConfig(max_faces=4, gallery_capacity=128, top_k=3, embed_size=32,
                   detection_threshold=0.0, recognition_threshold=10.0)
@@ -176,8 +177,9 @@ def no_references(tmp_path, monkeypatch):
 
 
 def test_build_default_pipeline_orbax_checkpoint(no_references, tmp_path, monkeypatch, caplog):
-    """The committed arcface_synth is an orbax tree: warn, embed with a
-    random ArcFace (18 class centres, as JAX's no-checkpoint branch). The
+    """The committed arcface_synth is an orbax tree, which the port reads
+    itself: no warning, the head sized from its arc_weight (16 class
+    centres), and the weights the JAX package restores, cast to bf16. The
     checkpoints directory holds the committed files alone, so a port
     checkpoint that tools/export_embedder.py wrote beside them is not seen."""
     committed = CHECKPOINTS_DIR / "arcface_synth"
@@ -187,9 +189,13 @@ def test_build_default_pipeline_orbax_checkpoint(no_references, tmp_path, monkey
     monkeypatch.setattr(app, "CHECKPOINTS_DIR", tmp_path / "ck")
     with caplog.at_level(logging.WARNING, logger="facerec_torch"):
         pipe = app.build_default_pipeline((96, 96), ServeConfig(max_faces=2), device="cpu")
-    assert any("random-init ArcFace" in r.getMessage() for r in caplog.records)
-    assert pipe.embedder.arc_weight.shape == (18, 512)
+    assert not any("random-init" in r.getMessage() for r in caplog.records)
+    assert pipe.embedder.arc_weight.shape == (16, 512)
     assert pipe.embedder.embedding.weight.dtype == torch.bfloat16 and not pipe.embedder.training
+    params = jax_load_checkpoint(committed, "best")["params"]
+    bf16 = lambda a: torch.from_numpy(np.asarray(a, np.float32)).to(torch.bfloat16)  # noqa: E731
+    assert torch.equal(pipe.embedder.arc_weight, bf16(params["arc_weight"]))
+    assert torch.equal(pipe.embedder.embedding.weight, bf16(params["embedding"]["kernel"]).T)
     assert pipe.detector.thresholds == CALIBRATED_THRESHOLDS and pipe.gallery.count == 0
 
 

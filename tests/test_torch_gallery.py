@@ -215,3 +215,31 @@ def test_gallery_save_load_both_directions(tmp_path):
                                np.asarray(jax_store.embeddings), atol=1e-6)
     empty = GalleryStore.load(tmp_path / "missing", capacity=4, device="cpu")
     assert empty.count == 0 and empty.embeddings.shape == (4, 512)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gallery_loads_the_reference_list_pickle(tmp_path, dtype):
+    """The original reference app's ``face_references.pkl``: a list of
+    ``{"name", "embedding_numpy" [1, 512], "image_path"}`` dicts, a name
+    repeated as its own row (the JAX package reads only its dict format).
+    The rows are those of the same gallery saved as a dict; ``save`` still
+    writes the dict, which JAX's ``load`` reads."""
+    import pickle
+
+    rng = np.random.default_rng(5)
+    names = ["ann", "ben", "ann", "cy"]
+    embs = rng.normal(size=(4, 1, 512)).astype(np.float32)
+    refs = [{"name": n, "embedding_numpy": e, "image_path": f"face_references/{n}_{i}.jpg"}
+            for i, (n, e) in enumerate(zip(names, embs))]
+    (tmp_path / "ref").mkdir()
+    (tmp_path / "ref" / "face_references.pkl").write_bytes(pickle.dumps(refs))
+    store = GalleryStore.load(tmp_path / "ref", capacity=8, dtype=dtype, device="cpu")
+    assert store.names == names and store.count == 4
+    want = GalleryStore(capacity=8, dtype=dtype, device="cpu")
+    want.add_many(names, embs.reshape(4, 512))
+    assert torch.equal(store.embeddings, want.embeddings)
+    store.save(tmp_path / "out")
+    saved = pickle.loads((tmp_path / "out" / "face_references.pkl").read_bytes())
+    assert isinstance(saved, dict) and list(saved) == ["ann", "ben", "cy"]
+    back = JaxGalleryStore.load(tmp_path / "out", capacity=8)
+    assert back.names == ["ann", "ben", "cy"]

@@ -17,6 +17,7 @@ from PIL import Image
 
 import facerec_torch.cli.interactive as TI
 import facerec_torch.data.preprocess as tp
+from facerec_torch.data import download
 import facerec_tpu.cli.interactive as JI
 from facerec_torch.cli.main import main
 from facerec_tpu.cli.main import main as jax_main
@@ -137,10 +138,12 @@ def test_menu_preprocess_on_the_cpu(raw_root, monkeypatch, capsys):
 def test_menu_exits_at_end_of_input_and_on_9(monkeypatch, capsys):
     _scripted(monkeypatch, [])
     assert TI.interactive_menu("cpu") == 0
+    calls = []
+    monkeypatch.setattr(download, "download_all_datasets", lambda: calls.append("all"))
     _scripted(monkeypatch, ["nine", "8", "9"])
     assert TI.interactive_menu("cpu") == 0
     out = capsys.readouterr().out
-    assert "=== Face Recognition (cpu) ===" in out and "download is not ported" in out
+    assert "=== Face Recognition (cpu) ===" in out and calls == ["all"]
     for i, o in enumerate(["Preprocess raw data", "Preprocessing visualization", "Train a model",
                            "Evaluate a model", "Hyperparameter tuning", "Cross-validation",
                            "Compare all models", "Download datasets", "Exit"]):

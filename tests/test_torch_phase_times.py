@@ -23,6 +23,17 @@ def test_phase_seconds_from_the_last_line_of_each_phase():
     assert list(got)[:-2] == [n for n, _ in PHASES if n in got]
 
 
+def test_phase_seconds_of_the_serve_trained_path():
+    """serve_trained ends at its beside-serve line, after the identification
+    it prints (its serve line comes first and ends nothing)."""
+    stamped = [(1.0, "serve_facenet: {}\n"), (2.0, "serve_trained read: {}\n"),
+               (5.0, "serve_trained: {}\n"), (6.0, "serve_trained identify: {}\n"),
+               (6.5, "serve_trained beside serve: {}\n"), (9.0, "mesh: phase 2.0 s\n")]
+    got = phase_seconds(stamped, 10.0)
+    assert got == {"serve_facenet": 1.0, "serve_trained": 5.5, "mesh": 2.5, "rest": 1.0,
+                   "total": 10.0}
+
+
 def test_phase_seconds_of_a_run_that_printed_no_phase():
     assert phase_seconds([(0.5, "card: x\n")], 3.0) == {"rest": 3.0, "total": 3.0}
 

@@ -102,17 +102,24 @@ def test_tracker_and_iou_match_jax():
 
 def test_port_imports_no_jax():
     """Every facerec_torch module and chip_smoke import with jax, flax and
-    facerec_tpu made unimportable (optax too, which the JAX trainers use)."""
+    facerec_tpu made unimportable (optax too, which the JAX trainers use,
+    and tensorstore and zstandard, which read orbax trees there).
+    ``serve.app_ui`` imports streamlit, which is not installed: a stub
+    stands in."""
     mods = sorted(".".join(p.relative_to(REPO).with_suffix("").parts)
                   for p in (REPO / "facerec_torch").rglob("*.py"))
     mods = [m.removesuffix(".__init__") for m in mods] + ["chip_smoke"]
     code = ("import sys, importlib\n"
-            "for name in ('jax', 'jaxlib', 'flax', 'optax', 'facerec_tpu'):\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'optax', 'facerec_tpu', 'tensorstore',"
+            " 'zstandard'):\n"
             "    sys.modules[name] = None\n"
+            "import types\n"
+            "st = sys.modules['streamlit'] = types.ModuleType('streamlit')\n"
+            "st.cache_resource = lambda f: f\n"
             f"for m in {mods!r}:\n"
             "    importlib.import_module(m)\n"
             "leaked = [m for m in sys.modules if m.split('.')[0] in ('jax', 'flax', 'optax',"
-            " 'facerec_tpu')"
+            " 'facerec_tpu', 'tensorstore', 'zstandard')"
             " and sys.modules[m] is not None]\n"
             "assert not leaked, leaked\n"
             "print(len(sys.argv) and 'ok')\n")
@@ -123,7 +130,9 @@ def test_port_imports_no_jax():
     assert {"facerec_torch.ops.augment", "facerec_torch.data.preprocess",
             "facerec_torch.detect.train", "facerec_torch.utils.profiling",
             "facerec_torch.cli.interactive", "facerec_torch.models.facenet",
-            "facerec_torch.models.convert", "facerec_torch.models.fold"} <= set(mods)
+            "facerec_torch.models.convert", "facerec_torch.models.fold",
+            "facerec_torch.utils.zstd", "facerec_torch.train.ocdbt", "facerec_torch.train.orbax",
+            "facerec_torch.data.download", "facerec_torch.serve.app_ui"} <= set(mods)
 
 
 @pytest.mark.parametrize("entry", ["pipeline", "mtcnn", "embedder", "gallery", "evaluate_model",
@@ -133,7 +142,8 @@ def test_port_imports_no_jax():
                                    "cli_train", "process_raw_data", "batch_preprocessor",
                                    "train_net", "train_detector", "interactive",
                                    "cli_preprocess", "facenet_embedder", "exported_embedder",
-                                   "folded_arcface", "folded_facenet"])
+                                   "folded_arcface", "folded_facenet", "orbax_embedder",
+                                   "run_demo", "cli_demo"])
 def test_entry_points_refuse_cpu_fallback(entry, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("a CUDA card is present; the refusal is for machines without one")
@@ -150,7 +160,7 @@ def test_entry_points_refuse_cpu_fallback(entry, tmp_path):
     from facerec_torch.models import ArcFaceNet, get_model
     from facerec_torch.models.facenet import InceptionResnetV1, build_facenet_embedder
     from facerec_torch.models.fold import folded_arcface, folded_facenet
-    from facerec_torch.serve.app import build_default_pipeline
+    from facerec_torch.serve.app import build_default_pipeline, run_demo
     from facerec_torch.train.cross_validation import run_cross_validation
     from facerec_torch.train.lr_finder import find_optimal_lr
     from facerec_torch.train.state import create_train_state
@@ -194,6 +204,10 @@ def test_entry_points_refuse_cpu_fallback(entry, tmp_path):
         "exported_embedder": lambda: build_embedder(checkpoint=tmp_path / "final"),
         "folded_arcface": lambda: folded_arcface(ArcFaceNet(num_classes=2).state_dict()),
         "folded_facenet": lambda: folded_facenet(InceptionResnetV1((1, 1, 1)).state_dict()),
+        "orbax_embedder": lambda: build_embedder(
+            checkpoint=REPO / "outputs" / "checkpoints" / "arcface_synth" / "best"),
+        "run_demo": lambda: run_demo(),
+        "cli_demo": lambda: cli_main(["demo"]),
     }[entry]
     with pytest.raises(RuntimeError, match="CUDA"):
         build()
