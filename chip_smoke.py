@@ -5,6 +5,7 @@
 Phases, each of which raises (and so exits nonzero) on failure:
 
   1. build    every CUDA kernel of the serve step from ``facerec_torch/csrc``
+              (K1, K2 and the NMS fixed point)
               (one ``nvcc`` per source, all at once), and the host JPEG loader
               (``csrc/loader.cpp``) with ``g++``; a loader that does not build
               prints the compiler's error and leaves the trainer on PIL;
@@ -31,11 +32,23 @@ Phases, each of which raises (and so exits nonzero) on failure:
               of 480 x 640 with 8 rendered faces each, MTCNN with the
               committed detector weights in bf16, a full-width ResNet-18
               ArcFace embedder in bf16 from seed 1, a 1024-row bf16 gallery
-              half filled), once with every launch count set to 0 just before:
-              both kernels must have launched, and at least 0.95 x 384 faces
-              must be found at p >= 0.6; then the same step on a small input,
-              on the card and on the CPU, must agree; then faces/s after
-              warm-up, timed with CUDA events, and a per-stage breakdown;
+              half filled), through the captured step: the first call
+              captures the CUDA graph (its time and peak memory printed),
+              then one replay with every launch count set to 0 just before:
+              K1 and K2 once and the NMS kernel 5 times (the profiler's
+              kernel names on one replay must say the same), at least 0.95 x
+              384 faces found at p >= 0.6, and every field ``torch.equal``
+              to the eager ``step`` on the same frames; the NMS kernel
+              bit for bit against its plain loop on each of its five calls'
+              own inputs (every serve path, the demo and the mesh ranks
+              too), the rounds each took, and its ms, device ms and bound on
+              each; ``dispatch_demo`` on the 48 frames must return before an
+              event recorded right after it is done (host ms beside device
+              ms); the embed stage alone, eager against one graph (serve and
+              serve_facenet); then the same step on a small input, on the
+              card and on the CPU, must agree; then faces/s captured and
+              eager in turns, timed with CUDA events, the busy share of
+              each, and a per-stage breakdown;
   5. serve 1M the same step with a 1,048,576-row gallery holding 524,288
               seeded ``torch.randn`` rows enrolled on the card
               (``GalleryStore.add_many_device``), as ``bench.py`` runs its
@@ -158,7 +171,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
               from the same detections within 1 level on average, and the
               end-to-end crop difference printed; ``apply_augment`` card
               against CPU on the same draws (1e-4).
-              K1 and K2 must launch 0 times;
+              K1 and K2 must launch 0 times, the NMS kernel (MTCNN) at
+              least once;
      detector ``train_net`` for P-, R- and O-Net on the card at
               tests/test_detector.py's configuration (150 scenes, 120 steps,
               batch 256, seeds 0/1/2): mining s and ms per step (CUDA
@@ -166,20 +180,22 @@ Phases, each of which raises (and so exits nonzero) on failure:
               detecting on 16 ``render_scene(rng(77))`` scenes: >= 10 found
               at mean IoU > 0.4 (the JAX test's bars); 3 f32 steps per net
               on the card against the CPU (1e-4 relative). K1 and K2 must
-              launch 0 times;
+              launch 0 times, the NMS kernel at least once;
      demo    ``measure_demo_fps(40)`` through ``build_default_pipeline`` on
               480 x 640 synthetic camera frames (the committed detector
-              weights, batch-1 packed steps): pipelined and serial fps, frame
-              ms; ``process_demo`` + ``faces_from_packed`` against
-              ``identify`` on two frames; both kernels held on the demo's
-              inputs; and ``benchmark_transfer`` (a fresh uint8 upload per
+              weights, batch-1 packed steps replayed from their CUDA graph):
+              pipelined and serial fps, frame ms; ``process_demo`` +
+              ``faces_from_packed`` against ``identify`` on two frames; the
+              replayed packed step against the eager one, ``torch.equal``;
+              every kernel held on the demo's inputs; and ``benchmark_transfer`` (a fresh uint8 upload per
               step) beside ``benchmark`` at bench.py's configuration;
   7. summary  one JSON line of kernels (time by CUDA events, the kernel's
               own device time and the wrapper's host time, plain version's
               time, library call's time, bound from this run's inputs,
               launches, error; K1 at three gallery sizes; K2 at forced
-              tilings, each bit for bit), the card's name and power limit,
-              and the result line.
+              tilings, each bit for bit; the NMS kernel at each of the serve
+              step's five calls, with the rounds per path), the card's name
+              and power limit, and the result line.
 
 Exits nonzero, printing no result, when no CUDA card is present or when run
 outside a checkout of the repository.
@@ -244,6 +260,8 @@ DET_AGREE_STEPS = 3
 DET_RTOL = 1e-4  # train_net on the card against the CPU, f32
 TRAINED_CHECKPOINT = "arcface_synth"  # the committed orbax tree, under outputs/checkpoints
 PATH_EMBEDDERS = {"serve_facenet": "facenet", "serve_trained": "trained"}  # else "arcface"
+# the five NMS calls of a serve step, in call order (detect/mtcnn.py)
+NMS_SITES = ("per_scale", "cross_scale", "rnet", "large_face", "final")
 K1_TRAINED_TOL = 6.0e-7  # K1 against its plain version on serve_trained's inputs
 ID_CLASSES, ID_RENDERS, ID_SIZE = 16, 24, 160  # the arcface_synth dataset's shape (synth16)
 # No seed 0-9 of the synthetic generator rebuilds the dataset the checkpoint
@@ -858,25 +876,226 @@ def small_input_agrees(dev, embedder: str = "arcface") -> None:
 
 def _zero_launches() -> None:
     from facerec_torch.ops.gallery import gallery_topk
+    from facerec_torch.ops.nms import nms_fixed_point
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
     gallery_topk.launches = 0
     rotate_patches_kernel.launches = 0
+    nms_fixed_point.launches = 0
 
 
 def _launches() -> dict:
     from facerec_torch.ops.gallery import gallery_topk
+    from facerec_torch.ops.nms import nms_fixed_point
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
-    return {"gallery_topk": gallery_topk.launches, "shear_rotate": rotate_patches_kernel.launches}
+    return {"gallery_topk": gallery_topk.launches, "shear_rotate": rotate_patches_kernel.launches,
+            "nms_fixed_point": nms_fixed_point.launches}
+
+
+def _step_launches(precise: bool = False, steps: int = 1) -> dict:
+    """The launches ``steps`` serve steps make: K1 once, K2 once (not on
+    the precise path), the NMS kernel once for each of its five calls."""
+    return {"gallery_topk": steps, "shear_rotate": 0 if precise else steps,
+            "nms_fixed_point": len(NMS_SITES) * steps}
+
+
+def record_nms(pipe, x) -> list:
+    """The (sup, keep0) inputs of each NMS fixed point of one eager detect
+    of ``x`` by ``pipe``'s detector, in call order (``NMS_SITES``)."""
+    import torch
+
+    from facerec_torch.ops import nms as nms_module
+
+    calls, kernel = [], nms_module.nms_fixed_point
+
+    def recording(sup, keep0, unroll=4):
+        calls.append((sup.clone(), keep0.clone()))
+        return kernel(sup, keep0, unroll)
+
+    # the wrapper counts on the module's name, here the recorder: a
+    # recording detect leaves the launch counts as they were
+    recording.launches = 0
+    nms_module.nms_fixed_point = recording
+    try:
+        with torch.no_grad():
+            pipe.detector.detect(x)
+    finally:
+        nms_module.nms_fixed_point = kernel
+    return calls
+
+
+def hold_nms(path: str, pipe, x) -> dict:
+    """The NMS kernel against its plain loop, bit for bit (keep and rounds),
+    on each of the five calls of the path's step, on the path's own inputs;
+    the rounds each call took (max and mean over its rows)."""
+    import torch
+
+    from facerec_torch.ops.nms import nms_fixed_point, nms_fixed_point_plain
+
+    calls = record_nms(pipe, x)
+    if len(calls) != len(NMS_SITES):
+        raise AssertionError(f"the {path} detect made {len(calls)} NMS calls, not "
+                             f"{len(NMS_SITES)}")
+    sites = {}
+    for site, (sup, keep0) in zip(NMS_SITES, calls):
+        keep, rounds = nms_fixed_point(sup, keep0)
+        ref, ref_rounds = nms_fixed_point_plain(sup, keep0)
+        sites[site] = {"rows": sup.shape[0], "boxes": sup.shape[1],
+                       "bit_exact": bool(torch.equal(keep, ref) and torch.equal(rounds, ref_rounds)),
+                       "rounds_max": int(rounds.max().item()),
+                       "rounds_mean": rounds.float().mean().item()}
+    print(f"NMS {path}: " + json.dumps(sites), flush=True)
+    if not all(v["bit_exact"] for v in sites.values()):
+        raise AssertionError(f"the NMS kernel disagrees with its plain loop on the {path} path")
+    return sites
+
+
+def time_nms(calls) -> list[dict]:
+    """The NMS kernel on each call's inputs: CUDA-event ms over back-to-back
+    calls, its device ms (profiler) and host ms, the plain loop's ms, and
+    the bound: sup, keep0 and keep bytes (and the rounds) over 3.35 TB/s,
+    beside this run's word operations (an AND and an OR per word, row and
+    round) over the f32 CUDA-core rate."""
+    from facerec_torch.ops.nms import nms_fixed_point, nms_fixed_point_plain
+
+    rows = []
+    for site, (sup, keep0) in zip(NMS_SITES, calls):
+        m, n = keep0.shape
+        _, rounds = nms_fixed_point(sup, keep0)
+        words = -(-n // 32)
+        bound, by = _bound_ms(m * n * n + 2 * m * n + 4 * m,
+                              2.0 * n * words * rounds.sum().item())
+
+        def fn(sup=sup, keep0=keep0):
+            return nms_fixed_point(sup, keep0)
+
+        rows.append({"site": site, "rows": m, "boxes": n, "sup_bytes": m * n * n,
+                     "ms": _time_ms(fn, iters=50), "device_ms": _kernel_device_ms(
+                         fn, ("nms_fixed_point",)), "host_ms": _host_ms(fn),
+                     "plain_ms": _time_ms(lambda sup=sup, keep0=keep0: nms_fixed_point_plain(
+                         sup, keep0), iters=5, warmup=1),
+                     "bound_ms": bound, "bound_by": by, "library_ms": None})
+        print("NMS time: " + json.dumps(rows[-1]), flush=True)
+    return rows
+
+
+def replay_launches(path: str, pipe, x, want: dict) -> dict:
+    """Launches of each port kernel in one replay of the captured step, by
+    the kernel names torch.profiler reports (K1's first pass, K2, the NMS
+    kernel); where the profiler reports no kernel under replay, counted on
+    the eager step instead, and said so."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    names = {"gallery_topk": "topk_partial", "shear_rotate": "shear_rotate",
+             "nms_fixed_point": "nms_fixed_point"}
+
+    def count(fn):
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        return ({k: sum(e.count for e in kernels if n in e.key) for k, n in names.items()},
+                sum(e.count for e in kernels))
+
+    got, total = count(lambda: pipe.run_step(x))
+    source = "one replay"
+    if total == 0:
+        got, total = count(lambda: pipe.step(x))
+        source = "the eager step: the profiler reported no kernel under replay"
+    out = {"by_kernel_name": got, "kernels_traced": total, "source": source}
+    print(f"{path}: launches per replay: " + json.dumps(out), flush=True)
+    if got != want:
+        raise AssertionError(f"one {path} replay launched {got} by kernel name, not {want}")
+    return out
+
+
+def graph_agrees(path: str, pipe, x, r) -> dict:
+    """The captured step's result ``r`` against the eager ``step`` on the
+    same frames: every field ``torch.equal``."""
+    import torch
+
+    eager = pipe.step(x)
+    same = {f: bool(torch.equal(a, b)) for f, a, b in zip(r._fields, r, eager)}
+    print(f"{path}: captured step against eager: " + json.dumps(same), flush=True)
+    if not all(same.values()):
+        raise AssertionError(f"the captured {path} step differs from the eager step: {same}")
+    return same
+
+
+def dispatch_returns_early(pipe, frames) -> dict:
+    """``dispatch_demo`` on the whole batch (its packed graph captured
+    first): an event recorded right after it returns must not be done yet.
+    The host ms to return beside the device ms of the upload and step; the
+    packed result against the eager step's, ``torch.equal``."""
+    import torch
+
+    pipe.dispatch_demo(frames)
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    t0 = time.perf_counter()
+    packed, emb = pipe.dispatch_demo(frames)
+    host_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    pending = not end.query()
+    torch.cuda.synchronize()
+    r = pipe.step(pipe.upload(frames))
+    out = {"frames": len(frames), "host_ms_to_return": host_ms,
+           "device_ms_upload_and_step": start.elapsed_time(end),
+           "event_pending_after_return": pending,
+           "packed_equal_to_eager": bool(torch.equal(packed, pipe.pack(r))
+                                         and torch.equal(emb, r.embeddings))}
+    print("dispatch_demo: " + json.dumps(out), flush=True)
+    if not (pending and out["packed_equal_to_eager"]):
+        raise AssertionError(f"dispatch_demo waited for the card or differs from eager: {out}")
+    return out
+
+
+def embed_captured(pipe, x) -> dict:
+    """The embed stage alone on the step's own crops, eager against one CUDA
+    graph of it (a measurement: the pipeline captures the whole step): ms
+    (CUDA events), device ms (profiler) and whether the graph's embeddings
+    equal the eager ones."""
+    import torch
+
+    s = pipe.config.embed_size
+    with torch.no_grad():
+        d = pipe.detector.detect(x)
+        crops = pipe.align(x, d.boxes, d.landmarks).reshape(-1, s, s, 3)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                pipe.embedder.embed(crops)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = pipe.embedder.embed(crops)
+        graph.replay()
+        same = bool(torch.equal(out, pipe.embedder.embed(crops)))
+        res = {"crops": crops.shape[0], "equal": same,
+               "eager_ms": _time_ms(lambda: pipe.embedder.embed(crops), iters=10, warmup=2),
+               "graph_ms": _time_ms(graph.replay, iters=10, warmup=2),
+               "eager_device_ms": device_busy(
+                   lambda: pipe.embedder.embed(crops))["device_ms_per_step"],
+               "graph_device_ms": device_busy(graph.replay)["device_ms_per_step"]}
+    del graph, out
+    print("embed alone, eager against one graph: " + json.dumps(res), flush=True)
+    return res
 
 
 def hold_path_kernels(path: str, pipe, x, r) -> dict:
     """Each kernel a serve path launched, against its plain version on the
     inputs that path gave it: K1 on the step's embeddings, gallery and count
-    (``_k1_case``'s bars); K2 (fast align only) bit for bit on the patches,
+    (``_k1_case``'s bars); the NMS kernel bit for bit on each of its five
+    calls (``hold_nms``); K2 (fast align only) bit for bit on the patches,
     angles and centres that the step's boxes and landmarks give. Returns the
-    max abs error of each."""
+    max abs error of each, and the NMS rounds per call (max, mean)."""
     import torch
 
     from facerec_torch.ops.warp_fast import _align_prep, rotate_patches
@@ -887,6 +1106,9 @@ def hold_path_kernels(path: str, pipe, x, r) -> dict:
     # a gallery sharded over the mesh's model axis: this rank's rows and count
     err = {"gallery_topk": _k1_case(path, q, pipe.gallery.embeddings, pipe.gallery.local_count,
                                     cfg.top_k, 2e-3)[0]}
+    sites = hold_nms(path, pipe, x)
+    err["nms_fixed_point"] = 0.0  # hold_nms raised on any differing keep bit or round count
+    err["nms_rounds"] = {k: [v["rounds_max"], v["rounds_mean"]] for k, v in sites.items()}
     if not pipe.precise_align:
         lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)
         patches, angle, centers = _align_prep(x.float(), r.boxes, lm, cfg.embed_size, 0.15)
@@ -928,10 +1150,15 @@ def precise_agrees(pipe, frames, r) -> dict:
 
 def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
           precise: bool = False, embedder: str = "arcface"):
-    """Phases 4 and 5 (and serve_precise, serve_facenet): the serve step at
-    bench.py's configuration with a bf16 gallery of ``capacity`` rows, half
-    filled by ``enroll(pipe, n)``. Returns the kernels' launches in one
-    step, step stats and the pipeline."""
+    """Phases 4 and 5 (and serve_precise, serve_facenet, serve_trained): the
+    serve step at bench.py's configuration with a bf16 gallery of
+    ``capacity`` rows, half filled by ``enroll(pipe, n)``, through the
+    captured step (``process``): the first call captures it (its peak
+    memory is printed); one replay with the counts from 0 launches K1 once,
+    K2 once (0 precise) and the NMS kernel 5 times, which the profiler's
+    kernel names confirm; the replay's result equals the eager step's. Then
+    faces/s and the busy share captured and eager, in turns. Returns the
+    kernels' launches in one replay, step stats and the pipeline."""
     import numpy as np
     import torch
 
@@ -944,18 +1171,23 @@ def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
     torch.cuda.synchronize()
     print(f"gallery {capacity} rows: enrolled {pipe.gallery.count} in "
           f"{time.perf_counter() - t0:.2f} s", flush=True)
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    pipe.process(frames)  # first call: cuDNN autotuning, allocator warm-up
+    pipe.process(frames)  # first call: the eager warm-up runs, the capture, one replay
     torch.cuda.synchronize()
-    print(f"first step {time.perf_counter() - t0:.2f} s", flush=True)
+    capture_s = time.perf_counter() - t0
+    memory = {"max_allocated_gb": torch.cuda.max_memory_allocated() / 2**30,
+              "reserved_gb": torch.cuda.memory_reserved() / 2**30}
+    print(f"first step (warm-up, capture, replay) {capture_s:.2f} s; memory "
+          f"{json.dumps(memory)}", flush=True)
 
     _zero_launches()
     r = pipe.process(frames)
     torch.cuda.synchronize()
     launches = _launches()
-    print(f"launches in one step ({path}, gallery {capacity} rows): {launches}", flush=True)
+    print(f"launches in one replay ({path}, gallery {capacity} rows): {launches}", flush=True)
     # the exact warp takes the place of K2
-    want = {"gallery_topk": 1, "shear_rotate": 0 if precise else 1}
+    want = _step_launches(precise)
     if launches != want:
         raise AssertionError(f"the {path} step launched {launches}, not {want}")
 
@@ -978,16 +1210,32 @@ def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
         raise AssertionError("serve step outputs are malformed")
 
     x = pipe.upload(frames)
+    extra = {"graph_equal": graph_agrees(path, pipe, x, r),
+             "replay_launches": replay_launches(path, pipe, x, want),
+             "capture_s": capture_s, "memory": memory}
     held = hold_path_kernels(path, pipe, x, r)
-    extra = {"kernels_held": held}
+    extra["kernels_held"] = held
+    if path == "serve":
+        extra["nms_time"] = time_nms(record_nms(pipe, x))
+        extra["dispatch_demo"] = dispatch_returns_early(pipe, frames)
+    if path in ("serve", "serve_facenet"):
+        extra["embed_alone"] = embed_captured(pipe, x)
     if precise:
         extra["against_fast"] = precise_agrees(pipe, frames, r)
     if agree:
         small_input_agrees(dev, embedder)
 
-    stats = pipe.benchmark(frames, iters=10, warmup=2)
+    # captured and eager in turns: captured, eager, eager, captured
+    runs = [pipe.benchmark(frames, iters=10, warmup=2) if graph else
+            pipe._timed(lambda: pipe.step(x), BATCH, 10, 2) for graph in (1, 0, 0, 1)]
+    stats = {k: (runs[0][k] + runs[3][k]) / 2 for k in runs[0]}
+    stats.update({f"{k}_eager": (runs[1][k] + runs[2][k]) / 2 for k in runs[0]})
+    stats["faces_per_sec_turns"] = [run["faces_per_sec"] for run in runs]
     stages = stage_breakdown(pipe, x)
-    busy = device_busy(lambda: pipe.step(x))
+    busy = device_busy(lambda: pipe.run_step(x))
+    busy_eager = device_busy(lambda: pipe.step(x))
+    stats.update({f"{k}_eager": busy_eager[k] for k in ("device_busy_share",
+                                                         "device_ms_per_step")})
     return launches, dict(stats, embedder=embedder, gallery_rows=capacity,
                           gallery_count=pipe.gallery.count,
                           detected=found, detected_p090=found_090, detected_expected=expected,
@@ -2098,8 +2346,9 @@ def prep(dev, card: str) -> dict:
             and aug_err <= AUG_ATOL):
         raise AssertionError(f"the prep path on the card disagrees with the CPU: {agree}, "
                              f"augment {aug_err}")
-    if any(launches.values()):
-        raise AssertionError(f"the prep path launched a serve kernel: {launches}")
+    if launches["gallery_topk"] or launches["shear_rotate"] or not launches["nms_fixed_point"]:
+        raise AssertionError(f"the prep path launched K1 or K2, or detected without the NMS "
+                             f"kernel: {launches}")
     return stats
 
 
@@ -2197,8 +2446,9 @@ def detector(dev, card: str) -> dict:
            if max(v["loss_max_rel"], v["param_rel"]) > DET_RTOL}
     if bad:
         raise AssertionError(f"train_net on the card disagrees with the CPU: {bad}")
-    if any(launches.values()):
-        raise AssertionError(f"the detector path launched a serve kernel: {launches}")
+    if launches["gallery_topk"] or launches["shear_rotate"] or not launches["nms_fixed_point"]:
+        raise AssertionError(f"the detector path launched K1 or K2, or detected without the "
+                             f"NMS kernel: {launches}")
     return stats
 
 
@@ -2266,7 +2516,13 @@ def demo(dev, bench_pipe, frames) -> tuple[dict, dict]:
     pipe.gallery.add_many([f"id_{i}" for i in range(n)], gal)
     agree = packed_agrees(pipe, two)
     x = pipe.upload(two[:1])
-    held = hold_path_kernels("demo", pipe, x, pipe.step(x))
+    r = pipe.step(x)
+    packed, emb = pipe.packed_step(x)
+    packed_equal = bool(torch.equal(packed, pipe.pack(r)) and torch.equal(emb, r.embeddings))
+    print(f"demo: replayed packed step against eager: equal={packed_equal}", flush=True)
+    if not packed_equal:
+        raise AssertionError("the demo's replayed packed step differs from the eager step")
+    held = hold_path_kernels("demo", pipe, x, r)
 
     bench = bench_pipe.benchmark(frames, iters=6, warmup=1)
     transfer = bench_pipe.benchmark_transfer(frames, iters=6, warmup=1)
@@ -2274,7 +2530,8 @@ def demo(dev, bench_pipe, frames) -> tuple[dict, dict]:
              "frame_hw": list(FRAME_HW), "max_faces": pipe.config.max_faces,
              "embedder": "the trained arcface_synth (orbax best, bf16)",
              **fps, "pipelined_gain": fps["demo_fps"] / fps["demo_fps_serial"],
-             "packed_against_identify": agree, "kernels_held": held,
+             "packed_against_identify": agree, "packed_graph_equal": packed_equal,
+             "kernels_held": held,
              "bench_faces_per_s": bench["faces_per_sec"],
              "bench_sec_per_batch": bench["sec_per_batch"],
              "transfer_faces_per_s": transfer["faces_per_sec"],
@@ -2307,14 +2564,16 @@ def k2_tilings(k2_in, blocks_per_sm=(2, 1), segments=(1, 2, 3, 4)) -> list[dict]
     return out
 
 
-def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held) -> list[dict]:
+def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time) -> list[dict]:
     """The kernels line: each kernel's launches on every path, its error at
     the serve shape and on each path's own inputs (``held``), and its
-    times."""
+    times (the NMS kernel's on each of the serve path's five calls,
+    ``nms_time``; its headline at the cross-scale call, the largest)."""
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
     from facerec_torch.ops.warp_fast import rotate_patches
 
     serve_row = next(r for r in k1_sizes if r["rows"] == SERVE_ROWS)
+    cross = next(r for r in nms_time if r["site"] == "cross_scale")
     patches, angles, centers, e = k2_in
     n, p = patches.shape[0], patches.shape[1]
     c = patches.shape[3]
@@ -2350,6 +2609,20 @@ def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held) -> list[dict]:
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
          "patch_bytes_read": read, "patch_share_read": read / (n * p * p * c * 2),
          "tilings": k2_tilings(k2_in)},
+        {"name": "nms_fixed_point", "route": "cuda",
+         "source": "facerec_torch/csrc/nms_fixed_point.cu",
+         "replaces": "facerec_tpu/ops/nms.py:115",
+         "launches": launches["serve"]["nms_fixed_point"],
+         "launches_by_path": {k: v["nms_fixed_point"] for k, v in launches.items()},
+         "max_abs_err": held["serve"]["nms_fixed_point"],
+         "max_abs_err_by_path": {k: v["nms_fixed_point"] for k, v in held.items()},
+         "rounds_by_path": {k: v["nms_rounds"] for k, v in held.items()},
+         "shape": f"{cross['rows']} rows x {cross['boxes']} boxes (the cross-scale call)",
+         **{key: cross[key] for key in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+         "per_step": {key: sum(r[key] for r in nms_time)
+                      for key in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms")},
+         "sites": nms_time},
     ]
 
 
@@ -2501,7 +2774,7 @@ def mesh_one_rank(dev, serve_pipe, frames, rows) -> tuple[dict, object]:
     print("mesh 1x1 (nccl): " + json.dumps(out), flush=True)
     if not (all(same.values()) and all(train_same.values())):
         raise AssertionError(f"the mesh path at world size 1 differs from the plain path: {out}")
-    if launches != {"gallery_topk": 1, "shear_rotate": 1}:
+    if launches != _step_launches():
         raise AssertionError(f"the (1, 1) mesh step launched {launches}")
     return launches, plain
 
@@ -2792,8 +3065,7 @@ def mesh(dev, frames, serve_pipe, rows, card) -> tuple[dict, dict, dict]:
         raise AssertionError(f"the (2, 1) train steps disagree with one process: "
                              f"{stats['2x1_train']}")
     for key, got in launches.items():
-        want = 0 if "train" in key else 1
-        if got != {"gallery_topk": want, "shear_rotate": want}:
+        if got != _step_launches(steps=0 if "train" in key else 1):
             raise AssertionError(f"the {key} layout launched {got}")
     held = {f"mesh_{lay}_rank{r}": got[lay]["held"] for r, got in enumerate(ranks)
             for lay in ("1x2", "2x1")}
@@ -2866,8 +3138,16 @@ def main() -> int:
             precise=path == "serve_precise", embedder=PATH_EMBEDDERS.get(path, "arcface"))
         served[path] = {"phase_s": time.perf_counter() - t0} | {key: stats[key] for key in (
             "embedder", "gallery_rows", "gallery_count", "faces_per_sec", "sec_per_batch",
-            "host_sec_per_batch", "detected", "detected_p090", "detected_expected",
-            "stages_ms", "device_busy_share", "kernels_held")}
+            "host_sec_per_batch", "faces_per_sec_eager", "sec_per_batch_eager",
+            "host_sec_per_batch_eager", "faces_per_sec_turns", "detected", "detected_p090",
+            "detected_expected", "stages_ms", "device_busy_share", "device_ms_per_step",
+            "device_busy_share_eager", "device_ms_per_step_eager", "capture_s", "memory",
+            "kernels_held")}
+        if path == "serve":
+            nms_time = stats["nms_time"]
+            served[path]["dispatch_demo"] = stats["dispatch_demo"]
+        if "embed_alone" in stats:
+            served[path]["embed_alone"] = stats["embed_alone"]
         print(f"{path}: " + json.dumps(served[path] | {k: stats[k] for k in ("against_fast",)
                                                        if k in stats} | {"card": card}),
               flush=True)
@@ -2878,9 +3158,13 @@ def main() -> int:
         if path not in ("serve", "serve_facenet", "serve_trained"):
             del pipes[path]
         torch.cuda.empty_cache()
+    print("captured against eager: " + json.dumps({p: {k: v[k] for k in (
+        "faces_per_sec", "faces_per_sec_eager", "device_busy_share", "device_busy_share_eager",
+        "device_ms_per_step", "device_ms_per_step_eager", "capture_s", "memory")}
+        for p, v in served.items()} | {"card": card}), flush=True)
     print("serve_facenet beside serve: " + json.dumps({p: {k: served[p][k] for k in (
-        "embedder", "phase_s", "faces_per_sec", "sec_per_batch", "stages_ms",
-        "device_busy_share")}
+        "embedder", "phase_s", "faces_per_sec", "sec_per_batch", "faces_per_sec_eager",
+        "sec_per_batch_eager", "stages_ms", "device_busy_share", "embed_alone")}
         for p in ("serve", "serve_facenet")} | {"card": card}), flush=True)
     identified = identify_trained(dev, pipes.pop("serve_trained"), card)
     print("serve_trained beside serve: " + json.dumps({p: {k: served[p][k] for k in (
@@ -2923,7 +3207,7 @@ def main() -> int:
     held["demo"] = demo_stats["kernels_held"]
     print("demo: " + json.dumps(demo_stats | {"card": card}), flush=True)
     torch.cuda.empty_cache()
-    rows = kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held)
+    rows = kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time)
     if "jax" in sys.modules:
         raise AssertionError("the run imported jax")
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)

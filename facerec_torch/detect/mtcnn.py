@@ -15,6 +15,7 @@ JAX version that keep the results equal:
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -200,6 +201,14 @@ def demote_nested(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor
     return torch.where(is_part, scores - 1.0, scores)
 
 
+@functools.lru_cache(maxsize=None)
+def _box_scale(sx: float, sy: float, device: torch.device) -> torch.Tensor:
+    """[sx, sy, sx, sy] in f32, built once per value and device: a
+    host-to-device copy inside the serve step would stop it from being
+    captured in a CUDA graph."""
+    return torch.tensor([sx, sy, sx, sy], device=device)
+
+
 def _square(boxes: torch.Tensor) -> torch.Tensor:
     """rerec: expand to a square around the centre."""
     w = boxes[..., 2] - boxes[..., 0]
@@ -366,8 +375,8 @@ class MTCNN(nn.Module):
             rs = self.rnet_crop_scale
             rh, rw = int(round(h * rs)), int(round(w * rs))
             xh = resize_bilinear(xn.float(), (rh, rw))
-            rscale = torch.tensor([rw / w, rh / h, rw / w, rh / h], device=boxes.device)
-            return crop_resize_matmul_batched(xh, boxes * rscale, 24, out_dtype=self.dtype)
+            return crop_resize_matmul_batched(xh, boxes * _box_scale(rw / w, rh / h, boxes.device),
+                                              24, out_dtype=self.dtype)
         return crop_resize_matmul_batched(xn, boxes, 24, out_dtype=self.dtype)
 
     def _stages23(self, xn: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor

@@ -13,6 +13,8 @@ corners differently, so the gathers are explicit.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
@@ -70,7 +72,11 @@ def affine_warp(images: torch.Tensor, matrices: torch.Tensor, out_hw: tuple[int,
 def rotation_matrix(center_xy: torch.Tensor, angle_deg: torch.Tensor | float,
                     scale: torch.Tensor | float = 1.0) -> torch.Tensor:
     """``cv2.getRotationMatrix2D`` semantics (the forward map); [..., 2, 3]."""
-    a = torch.deg2rad(torch.as_tensor(angle_deg, dtype=torch.float32, device=center_xy.device))
+    dev = center_xy.device
+    # a Python angle is filled on the device: a host copy could not be captured
+    a = torch.deg2rad(torch.as_tensor(angle_deg, dtype=torch.float32, device=dev)
+                      if isinstance(angle_deg, torch.Tensor)
+                      else torch.full((), angle_deg, dtype=torch.float32, device=dev))
     alpha = torch.cos(a) * scale
     beta = torch.sin(a) * scale
     alpha, beta, cx, cy = torch.broadcast_tensors(alpha, beta, center_xy[..., 0],
@@ -94,10 +100,17 @@ def invert_affine(m: torch.Tensor) -> torch.Tensor:
     return torch.stack([row0, row1], dim=-2)
 
 
+@functools.lru_cache(maxsize=None)
+def _affine_last_row(dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """[[0, 0, 1]], built once per dtype and device (a host-to-device copy
+    inside the serve step would stop it from being captured)."""
+    return torch.tensor([[0.0, 0.0, 1.0]], dtype=dtype, device=device)
+
+
 def compose_affine(m2: torch.Tensor, m1: torch.Tensor) -> torch.Tensor:
     """Compose sampling maps: result(p) = m1(m2(p)) for output coordinates
     p (m2 first, when both are output->input maps of successive stages)."""
-    last = torch.tensor([[0.0, 0.0, 1.0]], dtype=m1.dtype, device=m1.device)
+    last = _affine_last_row(m1.dtype, m1.device)
     a = torch.cat([m1, last.expand(*m1.shape[:-2], 1, 3)], dim=-2)
     b = torch.cat([m2, last.expand(*m2.shape[:-2], 1, 3)], dim=-2)
     return (a @ b)[..., :2, :]

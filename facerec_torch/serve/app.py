@@ -3,7 +3,7 @@ the Streamlit UI on top of it is ``app_ui.py``, which ``run_demo`` launches
 where ``streamlit`` is installed).
 
 A capture thread feeds frames to the packed serve step (``FacePipeline.
-dispatch_demo``), IOU tracking gives faces stable ids, a reference gallery
+dispatch_demo``, a replay of its CUDA graph on the card), IOU tracking gives faces stable ids, a reference gallery
 with add and remove persists to ``face_references/``, recognitions are
 logged, and an unknown face arms a capture prompt. ``FaceDemo`` runs without
 a webcam on ``synthetic_frame_source``.
@@ -123,8 +123,10 @@ class FaceDemo:
         # the last processed frame's device embeddings [1, F, D]: one row is
         # copied to the host only when a face is enrolled
         self._last_embeddings: torch.Tensor | None = None
-        # double buffering: the frame dispatched but not yet read back
-        self._inflight: tuple[np.ndarray, tuple] | None = None
+        # double buffering: the frame dispatched but not yet read back, with
+        # an event recorded right after its dispatch (on a card)
+        self._inflight: tuple[np.ndarray, tuple, torch.cuda.Event | None] | None = None
+        self._readback: torch.cuda.Stream | None = None
 
     def _webcam_source(self):
         import cv2
@@ -150,8 +152,9 @@ class FaceDemo:
         self._thread.start()
 
     def prewarm(self) -> None:
-        """One batch-1 step on a blank frame before the loop starts (cuDNN's
-        algorithm choice and the allocator's first blocks)."""
+        """One batch-1 step on a blank frame before the loop starts: on a
+        card this captures the packed step's CUDA graph (after its eager
+        warm-up: cuDNN's algorithm choice, the allocator's first blocks)."""
         blank = np.zeros((1, *self.pipeline.frame_hw, 3), np.uint8)
         self.pipeline.process_demo(blank)
 
@@ -184,22 +187,49 @@ class FaceDemo:
     def submit_frame(self, frame: np.ndarray) -> tuple[np.ndarray, list[dict]] | None:
         """Double-buffered step: dispatch THIS frame, then read back and
         return the PREVIOUS frame's (frame, faces); None on the first call.
-        Results run one frame behind the camera."""
+        Results run one frame behind the camera. The dispatch returns before
+        the card has finished the frame, and each dispatch's tensors are its
+        own (copied out of the graph's static outputs); the previous frame
+        is read back on a side stream that waits only for that frame's step,
+        so the read-back and the host's work on it overlap this frame's
+        step."""
         dispatched = self.pipeline.dispatch_demo(frame[None])
-        prev, self._inflight = self._inflight, (frame, dispatched)
+        prev, self._inflight = self._inflight, (frame, dispatched, self._mark())
         if prev is None:
             return None
         return self._finalize(*prev)
+
+    def _mark(self) -> torch.cuda.Event | None:
+        """An event after the work dispatched so far, on a card."""
+        if self.pipeline.device.type != "cuda":
+            return None
+        event = torch.cuda.Event()
+        event.record()
+        return event
+
+    def _read_packed(self, packed: torch.Tensor, ready: torch.cuda.Event | None) -> np.ndarray:
+        """The packed result on the host. After ``ready`` (the frame's own
+        dispatch) the copy runs on a side stream, so it waits for that
+        frame's step and not for a later frame's, as reading a JAX buffer
+        waits for that buffer alone."""
+        if ready is None:
+            return packed.cpu().numpy()
+        if self._readback is None:
+            self._readback = torch.cuda.Stream(packed.device)
+        self._readback.wait_event(ready)
+        with torch.cuda.stream(self._readback):
+            return packed.cpu().numpy()  # synchronises the side stream alone
 
     def flush(self) -> tuple[np.ndarray, list[dict]] | None:
         """Read back the trailing in-flight frame (loop shutdown)."""
         prev, self._inflight = self._inflight, None
         return self._finalize(*prev) if prev is not None else None
 
-    def _finalize(self, frame: np.ndarray, dispatched: tuple) -> tuple[np.ndarray, list[dict]]:
+    def _finalize(self, frame: np.ndarray, dispatched: tuple,
+                  ready: torch.cuda.Event | None = None) -> tuple[np.ndarray, list[dict]]:
         packed_dev, emb = dispatched
         self._last_embeddings = emb
-        faces = self.pipeline.faces_from_packed(packed_dev.cpu().numpy())[0]
+        faces = self.pipeline.faces_from_packed(self._read_packed(packed_dev, ready))[0]
         ids = self.tracker.update([f["box"] for f in faces])
         for f, fid in zip(faces, ids):
             f["face_id"] = fid

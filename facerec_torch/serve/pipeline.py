@@ -5,10 +5,27 @@ One call of ``step`` runs the MTCNN cascade, box clean-up, the fused
 eye-levelling align + crop (2-shear rotation kernel; or, with
 ``precise_align``, the exact gather warp of ``ops/image.py``), the ArcFace
 embedder and the gallery top-k kernel over a fixed-size frame batch; each
-frame yields up to ``max_faces`` masked slots. PyTorch runs eagerly, so the
-step is a sequence of launches rather than one compiled program; the NMS
-fixed points read the host once per block of rounds, so ``dispatch_demo``
-returns only once detection is done.
+frame yields up to ``max_faces`` masked slots. ``step`` is the eager body,
+the counterpart of JAX's ``_step_raw``: a sequence of launches. Every shape
+in it is static and no op in it waits on the host (the NMS fixed points run
+to convergence in their own kernel), so on a card without a mesh the
+pipeline runs it as one captured program, the counterpart of the jitted
+step: ``run_step``, ``packed_step``, ``process``, ``dispatch_demo``,
+``identify``, ``benchmark`` and ``benchmark_transfer`` replay a
+``torch.cuda.CUDAGraph`` of the step. The graph is captured at the first
+call for each frame shape and dtype (as jit traces once per shape), after
+two eager warm-up runs on a side stream; a capture that fails raises. The
+frames are copied into the graph's static input and its outputs copied out,
+both in stream order, so every call returns buffers of its own, which no
+later replay overwrites, and returns before the card has finished them
+(``upload`` stages frames in pinned memory, so the copy to the card does
+not wait for earlier work either): ``dispatch_demo`` lets the demo
+dispatch frame N + 1 before it reads frame N back. The graph reads the detector's and embedder's weights and the
+gallery's ``embeddings`` and count in place, so an enrolment or a removal
+between replays is seen by the next one; replacing the gallery, the
+detector or the embedder (or changing ``precise_align``, ``face_margin`` or
+the config) captures anew. The pipeline's graphs share one memory pool,
+released with the pipeline. On the CPU the step runs eagerly.
 
 The demo's path, ``packed_step``, packs every field the host needs into one
 [B, F, 19] f32 tensor, so a frame costs one device-to-host copy.
@@ -22,7 +39,10 @@ runs the top-k kernel on its own rows with its own valid count, computed
 on the device from the global count (no host read), and the shards'
 winners are merged exactly (``global_topk_merge``); an index is ``shard *
 R + local``. ``process``, ``identify`` and the benchmarks answer for this
-rank's frames: rows ``[d B / dp, (d + 1) B / dp)`` of the batch.
+rank's frames: rows ``[d B / dp, (d + 1) B / dp)`` of the batch. With a mesh
+the step stays eager: gloo's collectives cannot be captured, and capture
+over NCCL across cards waits for a machine that has them. It still runs the
+NMS kernel, so its dispatch does not wait on detection either.
 """
 
 from __future__ import annotations
@@ -46,6 +66,7 @@ from facerec_torch.parallel.mesh import Mesh, batch_sharding
 from facerec_torch.serve.gallery import GalleryStore
 
 DEFAULT_LANDMARKS = [[40.0, 60.0], [120.0, 60.0], [80.0, 90.0], [50.0, 120.0], [110.0, 120.0]]
+WARMUP_RUNS = 2  # eager runs of the step on a side stream before its capture
 
 
 class PipelineResult(NamedTuple):
@@ -58,6 +79,24 @@ class PipelineResult(NamedTuple):
     match_indices: torch.Tensor  # [B, F, K] gallery rows
     match_distances: torch.Tensor  # [B, F, K] euclidean
     is_match: torch.Tensor  # [B, F] best distance <= recognition threshold
+
+
+class _Captured(NamedTuple):
+    """One captured step: its graph, static input and static outputs, and
+    the launches of each port kernel (``_kernel_wrappers``) one replay
+    makes."""
+    graph: torch.cuda.CUDAGraph
+    frames: torch.Tensor
+    outputs: tuple
+    launches: tuple[int, ...]
+
+
+def _kernel_wrappers() -> tuple:
+    """The port's kernel wrappers, whose ``launches`` counts a replay
+    advances by what its capture recorded."""
+    from facerec_torch.ops import gallery, nms, warp_kernel
+
+    return gallery.gallery_topk, warp_kernel.rotate_patches_kernel, nms.nms_fixed_point
 
 
 class FacePipeline:
@@ -91,6 +130,9 @@ class FacePipeline:
         s = float(config.embed_size)
         self._default_box = torch.tensor([0.0, 0.0, s, s], device=self.device)
         self._default_lmk = torch.tensor(DEFAULT_LANDMARKS, device=self.device)
+        self._graphs: dict[tuple, _Captured] = {}
+        self._graph_inputs: tuple | None = None  # what the graphs read in place
+        self._pool = None  # the graphs' shared memory pool
 
     @torch.no_grad()
     def step(self, frames: torch.Tensor) -> PipelineResult:
@@ -149,15 +191,13 @@ class FacePipeline:
         return align_and_crop_fast_batched(frames.float(), boxes, landmarks,
                                            self.config.embed_size, out_dtype=torch.bfloat16)
 
-    @torch.no_grad()
-    def packed_step(self, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """The step, with every host-needed field packed into one [B, F, 19]
-        f32 tensor (columns: valid, prob, box x4, landmarks x10, is_match,
-        top-1 gallery row, top-1 distance); the embeddings [B, F, D] stay on
-        the device."""
-        r = self.step(frames)
+    @staticmethod
+    def pack(r: PipelineResult) -> torch.Tensor:
+        """Every host-needed field of a step's result in one [B, F, 19] f32
+        tensor (columns: valid, prob, box x4, landmarks x10, is_match, top-1
+        gallery row, top-1 distance)."""
         b, f = r.probs.shape
-        flat = torch.cat([
+        return torch.cat([
             r.valid[..., None].float(),
             r.probs[..., None].float(),
             r.boxes.float(),
@@ -166,11 +206,78 @@ class FacePipeline:
             r.match_indices[..., :1].float(),
             r.match_distances[..., :1].float(),
         ], dim=-1)
-        return flat, r.embeddings
+
+    @torch.no_grad()
+    def _packed(self, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The eager body of ``packed_step``."""
+        r = self.step(frames)
+        return self.pack(r), r.embeddings
+
+    def packed_step(self, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The step with its result packed (``pack``) into one [B, F, 19] f32
+        tensor, and the embeddings [B, F, D], which stay on the device.
+        Replayed from its own CUDA graph on a card without a mesh."""
+        return self._run("packed", frames)
+
+    def run_step(self, frames: torch.Tensor) -> PipelineResult:
+        """``step`` on frames on the pipeline's device, replayed from its
+        CUDA graph on a card without a mesh (eager otherwise); the result is
+        in buffers of its own, and the call returns before the card has
+        finished it."""
+        return self._run("step", frames)
+
+    def _run(self, kind: str, frames: torch.Tensor):
+        body = self.step if kind == "step" else self._packed
+        if self.device.type != "cuda" or self.mesh is not None:
+            return body(frames)
+        g = self.gallery
+        inputs = (self.detector, self.embedder, g.embeddings, g.count_device)
+        if self._graph_inputs is None or any(a is not b for a, b in zip(inputs,
+                                                                        self._graph_inputs)):
+            self._graphs.clear()  # a graph reads these in place: a new one captures anew
+            self._graph_inputs = inputs
+        key = (kind, tuple(frames.shape), frames.dtype, self.precise_align, self.face_margin,
+               self.config)
+        cap = self._graphs.get(key)
+        if cap is None:
+            cap = self._graphs[key] = self._capture(body, frames)
+        cap.frames.copy_(frames)
+        cap.graph.replay()
+        for wrapper, n in zip(_kernel_wrappers(), cap.launches):
+            wrapper.launches += n
+        out = [t.clone() for t in cap.outputs]  # JAX returns fresh buffers too
+        return PipelineResult(*out) if kind == "step" else tuple(out)
+
+    def _capture(self, body, frames: torch.Tensor) -> _Captured:
+        """Warm ``body`` up on a side stream, then capture it on a static
+        copy of ``frames`` into the pipeline's pool. Raises if the capture
+        fails; the launch counts are left as the warm-up made them, since a
+        capture launches nothing."""
+        dev = frames.device
+        with torch.cuda.device(dev):
+            static = frames.clone()
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_RUNS):
+                    body(static)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            wrappers = _kernel_wrappers()
+            before = [w.launches for w in wrappers]
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                outputs = body(static)
+            recorded = tuple(w.launches - n for w, n in zip(wrappers, before))
+            for w, n in zip(wrappers, before):
+                w.launches = n
+        return _Captured(graph, static, tuple(outputs), recorded)
 
     def dispatch_demo(self, frames: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
-        """Upload and run the packed step; returns the device tensors
-        (packed, embeddings) without waiting for the card to finish them."""
+        """Upload and enqueue the packed step; returns the device tensors
+        (packed, embeddings) without waiting for the card to finish them
+        (on a card without a mesh, a replay of the captured packed step)."""
         return self.packed_step(self.upload(frames))
 
     def process_demo(self, frames: np.ndarray) -> tuple[np.ndarray, torch.Tensor]:
@@ -205,19 +312,26 @@ class FacePipeline:
     def upload(self, frames: np.ndarray) -> torch.Tensor:
         """Host frames to the device: uint8 travels as uint8 (a quarter of
         the bytes), anything else as float32. With a mesh, only this rank's
-        slice of the batch travels."""
+        slice of the batch travels. To a card the frames go through pinned
+        memory, and the call returns once they are copied there: the copy to
+        the card is queued behind the work already on the stream instead of
+        waiting for it, as a copy from pageable memory would."""
         arr = np.asarray(frames)
         if self.mesh is not None:
             arr = arr[batch_sharding(self.mesh, len(arr), self.mesh.data_axis)]
         if arr.dtype != np.uint8:
             arr = arr.astype(np.float32, copy=False)
-        return torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+        host = torch.from_numpy(np.ascontiguousarray(arr))
+        if self.device.type != "cuda":
+            return host.to(self.device)
+        # the pinned block is not reused before the copy out of it is done
+        return host.pin_memory().to(self.device, non_blocking=True)
 
     def process(self, frames: np.ndarray) -> PipelineResult:
         """frames: [B, H, W, 3] uint8/float RGB -> device results (with a
         mesh, of this rank's slice of the frames); the gallery and its count
         stay on the device."""
-        return self.step(self.upload(frames))
+        return self.run_step(self.upload(frames))
 
     def identify(self, frames: np.ndarray) -> list[list[dict]]:
         """Per frame, a list of face dicts with names (the demo's shape)."""
@@ -243,11 +357,12 @@ class FacePipeline:
 
     def benchmark(self, frames: np.ndarray, iters: int = 20, warmup: int = 2
                   ) -> dict[str, float]:
-        """Steady-state throughput of the step on device-resident frames,
-        timed with CUDA events after ``warmup`` steps. Runs only on a card."""
+        """Steady-state throughput of the step (``run_step``: the captured
+        graph without a mesh) on device-resident frames, timed with CUDA
+        events after ``warmup`` steps. Runs only on a card."""
         self._check_card()
         x = self.upload(frames)
-        return self._timed(lambda: self.step(x), x.shape[0], iters, warmup)
+        return self._timed(lambda: self.run_step(x), x.shape[0], iters, warmup)
 
     def benchmark_transfer(self, frames: np.ndarray, iters: int = 12, warmup: int = 2
                            ) -> dict[str, float]:
@@ -265,7 +380,7 @@ class FacePipeline:
             i = cursor[0]
             cursor[0] += 1
             base[rows.start, 0, 0, :] = (i & 0xFF, (i >> 8) & 0xFF, 1)
-            self.step(self.upload(base))  # pageable: base is read before upload returns
+            self.run_step(self.upload(base))  # base is copied out before upload returns
 
         return self._timed(one, rows.stop - rows.start, iters, warmup)
 

@@ -16,8 +16,10 @@ from facerec_torch.models.arcface import build_embedder
 from facerec_torch.ops.arcface import cosine_logits
 from facerec_torch.ops.gallery import (bf16_rows_per_split, bf16_splits, gallery_topk,
                                        gallery_topk_plain)
+from facerec_torch.ops.nms import MAX_N, nms_fixed_point, nms_fixed_point_plain
 from facerec_torch.ops.warp_fast import rotate_patches
 from facerec_torch.ops.warp_kernel import rotate_patches_kernel, rotate_patches_tiled
+from facerec_torch.serve.pipeline import WARMUP_RUNS
 from facerec_torch.train.engine import train_model
 
 pytestmark = pytest.mark.cuda
@@ -306,6 +308,7 @@ def test_precise_step_on_the_card_matches_the_cpu(dev, no_tf32):
     same top-1)."""
     frames = _demo_frames()
     card, cpu = _tiny_pipeline(dev, True), _tiny_pipeline(torch.device("cpu"), True)
+    card.process(frames)  # the capture, after its warm-up runs
     k1, k2 = gallery_topk.launches, rotate_patches_kernel.launches
     a = card.process(frames)
     torch.cuda.synchronize()
@@ -421,12 +424,13 @@ def test_facenet_step_on_the_card_matches_the_cpu(dev, no_tf32):
     """chip_smoke's small-input check with a full-width InceptionResnetV1
     embedder: the serve step on the card (K1 and K2 launched once a step)
     against the CPU step, the same valid slots, cosine > 0.999, the same
-    top-1."""
+    top-1. Two replays of one captured step, after its warm-up runs."""
     from chip_smoke import small_input_agrees
 
     k1, k2 = gallery_topk.launches, rotate_patches_kernel.launches
     small_input_agrees(dev, "facenet")
-    assert (gallery_topk.launches - k1, rotate_patches_kernel.launches - k2) == (2, 2)
+    steps = 2 + WARMUP_RUNS
+    assert (gallery_topk.launches - k1, rotate_patches_kernel.launches - k2) == (steps, steps)
 
 
 @pytest.mark.parametrize("embedder", ["arcface", "facenet"])
@@ -447,3 +451,152 @@ def test_fold_on_the_card_matches_unfolded(dev, no_tf32, embedder):
     with torch.no_grad():
         cos = (net.embed(x) * folded.embed(x)).sum(-1)
     assert cos.min().item() > 1 - FOLD_COS
+
+
+def _order_respecting_sup(m, n, density, gen, dev):
+    """Random NMS inputs as ``nms`` builds them: sup[i, j] only where j
+    precedes i in a random score order (so the fixed point exists and is
+    greedy NMS), only for candidate j, with density ``density``."""
+    rank = torch.argsort(torch.rand(m, n, generator=gen, device=dev), dim=1).argsort(dim=1)
+    keep0 = torch.rand(m, n, generator=gen, device=dev) > 0.1
+    sup = ((torch.rand(m, n, n, generator=gen, device=dev) < density)
+           & (rank[:, None, :] < rank[:, :, None]) & keep0[:, None, :])
+    return sup, keep0
+
+
+def _assert_fixed_point_agrees(sup, keep0):
+    before = nms_fixed_point.launches
+    keep, rounds = nms_fixed_point(sup, keep0)
+    ref_keep, ref_rounds = nms_fixed_point_plain(sup, keep0)
+    torch.cuda.synchronize()
+    assert nms_fixed_point.launches == before + 1
+    assert torch.equal(keep, ref_keep) and torch.equal(rounds, ref_rounds)
+    return rounds
+
+
+@pytest.mark.parametrize("n", [1, 20, 36, 37, 64, 512, MAX_N])
+@pytest.mark.parametrize("density", [0.02, 0.3])
+def test_nms_kernel_matches_plain(dev, n, density):
+    """Random order-respecting inputs at the serve step's widths (20, 36,
+    64, 512), at the kernel's limit, and at widths whose rows are not
+    16-byte aligned (1, 37): keep and rounds equal to the plain loop's."""
+    gen = torch.Generator(device=dev).manual_seed(n)
+    m = 7 if n > 64 else 130
+    _assert_fixed_point_agrees(*_order_respecting_sup(m, n, density, gen, dev))
+
+
+@pytest.mark.parametrize("n", [20, 64, 512, MAX_N])
+def test_nms_kernel_ladders(dev, n):
+    """Box i may be suppressed only by box i - 1: a chain N - 1 deep, which
+    takes all N rounds; beside it a chain broken half-way and an empty
+    row. Greedy keeps every other box."""
+    idx = torch.arange(n, device=dev)
+    chain = (idx[:, None] - 1 == idx[None, :])
+    sup = torch.stack([chain, chain & (idx[:, None] != n // 2), torch.zeros_like(chain)])
+    keep0 = torch.ones(3, n, dtype=torch.bool, device=dev)
+    rounds = _assert_fixed_point_agrees(sup, keep0)
+    assert rounds.tolist() == [n, max(n // 2, n - n // 2), 1]
+    keep, _ = nms_fixed_point(sup, keep0)
+    assert torch.equal(keep[0], idx % 2 == 0)
+
+
+def test_nms_kernel_misaligned_rows(dev):
+    """Rows that start off a 16-byte boundary (a slice of a larger batch)."""
+    gen = torch.Generator(device=dev).manual_seed(5)
+    sup, keep0 = _order_respecting_sup(9, 37, 0.2, gen, dev)
+    _assert_fixed_point_agrees(sup[1:], keep0[1:])
+
+
+def test_nms_kernel_refuses_wide_rows(dev):
+    n = MAX_N + 1
+    sup = torch.zeros(1, n, n, dtype=torch.bool, device=dev)
+    with pytest.raises(ValueError, match="at most"):
+        nms_fixed_point(sup, torch.ones(1, n, dtype=torch.bool, device=dev))
+
+
+def _results_equal(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.parametrize("precise", [False, True])
+def test_captured_step_matches_eager(dev, no_tf32, precise):
+    """The replayed graph against the eager ``step`` on the same frames,
+    every field equal, on the fast and the precise path; the second replay
+    reuses the graph, and each call returns buffers of its own."""
+    pipe = _tiny_pipeline(dev, precise)
+    x = pipe.upload(_demo_frames())
+    eager = pipe.step(x)
+    first = pipe.run_step(x)
+    second = pipe.run_step(x)
+    torch.cuda.synchronize()
+    assert len(pipe._graphs) == 1
+    assert _results_equal(first, eager) and _results_equal(second, eager)
+    statics = {t.data_ptr() for cap in pipe._graphs.values() for t in cap.outputs}
+    assert not statics & {t.data_ptr() for t in (*first, *second)}
+
+
+def test_launches_per_replay(dev, no_tf32):
+    """One replay adds what its capture recorded: K1 1, K2 1 (0 on the
+    precise path) and the NMS kernel 5."""
+    for precise, k2 in ((False, 1), (True, 0)):
+        pipe = _tiny_pipeline(dev, precise)
+        x = pipe.upload(_demo_frames())
+        pipe.run_step(x)
+        before = (gallery_topk.launches, rotate_patches_kernel.launches,
+                  nms_fixed_point.launches)
+        pipe.run_step(x)
+        after = (gallery_topk.launches, rotate_patches_kernel.launches,
+                 nms_fixed_point.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (1, k2, 5)
+
+
+def test_two_dispatches_in_flight(dev, no_tf32):
+    """Two frames dispatched before either is read back: each equals its
+    own serial result, and neither aliases the graph's static buffers."""
+    pipe = _tiny_pipeline(dev)
+    frames = _demo_frames()
+    serial = [pipe.process_demo(frames[i:i + 1]) for i in (0, 1)]
+    first = pipe.dispatch_demo(frames[0:1])
+    second = pipe.dispatch_demo(frames[1:2])
+    statics = {t.data_ptr() for cap in pipe._graphs.values() for t in cap.outputs}
+    assert not statics & {t.data_ptr() for t in (*first, *second)}
+    for (packed, emb), (ref_packed, ref_emb) in zip((first, second), serial):
+        assert (packed.cpu().numpy() == ref_packed).all()
+        assert torch.equal(emb, ref_emb)
+    assert not (serial[0][0] == serial[1][0]).all()
+
+
+def test_enrolment_between_replays(dev, no_tf32):
+    """An enrolment after the capture is seen by the next replay: the
+    enrolled face matches its own new row, as the eager step says."""
+    pipe = _tiny_pipeline(dev)
+    x = pipe.upload(_demo_frames())
+    r = pipe.run_step(x)
+    face = r.embeddings[r.valid][0].cpu().numpy()
+    row = pipe.gallery.add("enrolled", face)
+    again = pipe.run_step(x)
+    torch.cuda.synchronize()
+    assert len(pipe._graphs) == 1
+    assert _results_equal(again, pipe.step(x))
+    slot = r.valid.nonzero()[0].tolist()
+    assert again.match_indices[slot[0], slot[1], 0].item() == row
+    assert again.is_match[slot[0], slot[1]].item()
+    pipe.gallery.remove("enrolled")
+    assert _results_equal(pipe.run_step(x), pipe.step(x))
+
+
+def test_demo_double_buffering_on_the_card(dev, no_tf32):
+    """``FaceDemo.submit_frame`` on the card, one frame behind, reads each
+    frame back on its side stream: the faces equal the serial path's."""
+    from facerec_torch.serve.app import FaceDemo, synthetic_frame_source
+
+    pipe = _tiny_pipeline(dev)
+    src = synthetic_frame_source((96, 96))
+    frames = [src() for _ in range(4)]
+    serial = [FaceDemo(pipe, frame_source=lambda: None).process_frame(f) for f in frames]
+    demo = FaceDemo(pipe, frame_source=lambda: None)
+    assert demo.submit_frame(frames[0]) is None
+    got = [demo.submit_frame(f)[1] for f in frames[1:]] + [demo.flush()[1]]
+    for g, r in zip(got, serial):
+        assert [(f["slot"], f["name"], f["box"]) for f in g] == [
+            (f["slot"], f["name"], f["box"]) for f in r]
