@@ -83,6 +83,18 @@ Phases, each of which raises (and so exits nonzero) on failure:
               normalised, as the model was trained): the f32 embedder's
               correct answers >= JAX's on the CPU (343) less one, and above
               the random-init embedder's on the same renders;
+     bench    ``python -m facerec_torch.cli.main bench`` (``facerec_torch.bench``,
+              the counterpart of ``bench.py``) in a subprocess, at the
+              defaults and with ``BENCH_TRANSFER=1``: exit code 0, its last
+              line with ``bench.py``'s keys less ``vs_baseline`` (and the
+              transfer-inclusive rate), ``detected_ok`` and
+              ``detected_p090_ok`` true, its ``#`` line, and no JAX module
+              imported (``-X importtime``); then the bench's ``prepare`` and
+              ``measure`` in this process with the counts from 0 (every
+              kernel launched; one replay K1 1, K2 1, NMS 5 by the
+              profiler's kernel names) and each kernel held on the bench's
+              own inputs; its faces/s beside the serve phase's captured
+              figure;
      mesh     the mesh path (``facerec_torch/parallel``): at world size 1
               over NCCL, the serve step through ``FacePipeline(mesh=(1, 1))``
               and one f32 ArcFace train step through the mesh path, each
@@ -128,6 +140,13 @@ Phases, each of which raises (and so exits nonzero) on failure:
               loading, the device busy share and the peak memory; which
               batcher the trainer took (``loader``: native or pil) and each
               batcher's images/s alone, native then PIL, on the same tree.
+              The trainer replays its step as a CUDA graph: the step's ms
+              and busy share captured against eager, in turns; three
+              captured steps against three eager ones from copies of one
+              state (dropout on), at f32 and bf16, bit for bit with
+              deterministic cuDNN (where the eager step equals itself; else
+              within twice its spread), and the drift with cuDNN's default
+              algorithms reported beside.
               This path has no TPU kernel: neither Pallas kernel is reached
               from ``train_model``;
      eval     ``evaluate_model`` on the checkpoint the train phase wrote, on
@@ -159,6 +178,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
               the host); ``generate_visualization_report`` on the ArcFace
               checkpoint (embeddings on the card against the CPU's) and
               ``main(["check-gpu"])``. K1 and K2 must launch 0 times;
+     bench_train  ``python -m facerec_torch.bench_train`` (the counterpart of
+              ``tools/bench_train.py``) in a subprocess for arcface, siamese
+              and baseline at batch 256, 160 px: exit code 0, the JAX tool's
+              keys, no JAX module imported, and ``train_step_ms`` within 1.3x
+              of the profiler's device ms per step of the same step;
      prep     ``process_raw_data`` on the card at the JAX package's settings
               (WORK_SIZE 512, batch 32, 224 px crops, margin 0.4, the
               committed detector weights at their source's thresholds,
@@ -241,6 +265,15 @@ TUNE_FOLDS = 5
 TUNE_TRIALS = 6
 TUNE_TRIAL_EPOCHS = 3
 SWEEP_STEPS = 3  # sweep steps held against the CPU (1-3 s each there)
+BENCH_KEYS = ("metric", "value", "unit", "detected", "detected_expected", "detected_ok",
+              "detected_p090", "detected_p090_ok")  # bench.py's line less vs_baseline
+BENCH_TRAIN_MODELS = ("arcface", "siamese", "baseline")
+BENCH_TRAIN_KEYS = ("model", "batch", "image", "train_step_ms", "train_imgs_per_sec",
+                    "eval_step_ms", "eval_imgs_per_sec", "backend", "devices", "compile_s")
+BENCH_TRAIN_DEVICE_RATIO = 1.3  # train_step_ms against the profiler's device ms per step
+JAX_MODULES = frozenset({"jax", "jaxlib", "flax", "optax", "facerec_tpu"})
+CAPTURE_STEPS = 3  # captured train steps held against eager ones from one state
+CAPTURE_SPREAD = 2.0  # x the eager-against-eager spread, where deterministic cuDNN is not
 ARCFACE_LR_CAP = 5e-4  # the LR finder's cap on its arcface suggestion
 VIZ_COS = 0.9999  # f32 embeddings on the card against the CPU's
 PREP_PERSONS = 6
@@ -1242,6 +1275,106 @@ def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
                           stages_ms=stages, **busy, **extra), pipe
 
 
+def _run_module(args: list[str], env: dict | None = None, timeout: float = 600) -> tuple:
+    """``python -X importtime -m <args>`` from the checkout: (return code,
+    stdout, stderr without the import lines, seconds, the top-level modules
+    the process imported)."""
+    import os
+
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-X", "importtime", "-m", *args], cwd=ROOT,
+                       env={**os.environ, **(env or {})}, capture_output=True, text=True,
+                       timeout=timeout)
+    seconds = time.perf_counter() - t0
+    imported, err = set(), []
+    for line in r.stderr.splitlines():
+        if line.startswith("import time:"):
+            imported.add(line.rsplit("|", 1)[-1].strip().split(".")[0])
+        else:
+            err.append(line)
+    return r.returncode, r.stdout, "\n".join(err), seconds, imported
+
+
+def _no_jax(what: str, imported: set) -> None:
+    found = sorted(imported & JAX_MODULES)
+    if found:
+        raise AssertionError(f"{what} imported {found}")
+
+
+def bench_cli(card: str) -> dict:
+    """``python -m facerec_torch.cli.main bench`` in a subprocess, at the
+    defaults and with ``BENCH_TRANSFER=1``: return code 0, the last stdout
+    line with ``bench.py``'s keys less ``vs_baseline`` (and the
+    transfer-inclusive rate when asked), both fill flags true, the ``#``
+    line on stderr, and no JAX module imported (``-X importtime``)."""
+    rows = {}
+    for name, env in (("defaults", {}), ("transfer", {"BENCH_TRANSFER": "1"})):
+        rc, out, err, seconds, imported = _run_module(["facerec_torch.cli.main", "bench"], env)
+        if rc != 0:
+            raise AssertionError(f"bench ({name}) exited {rc}: {err[-3000:]}")
+        line = json.loads(out.strip().splitlines()[-1])
+        keys = BENCH_KEYS + (("transfer_inclusive_faces_per_sec",) if env else ())
+        note = next(x for x in err.splitlines() if x.startswith("# frames/sec="))
+        fields, label = note[2:].split(" card=", 1)
+        rows[name] = line | {"note": dict(f.split("=", 1) for f in fields.split()),
+                             "note_card": label, "seconds": seconds}
+        print(f"bench ({name}): " + json.dumps(rows[name] | {"card": card}), flush=True)
+        _no_jax(f"bench ({name})", imported)
+        if not (tuple(line) == keys and line["detected_ok"] and line["detected_p090_ok"]):
+            raise AssertionError(f"bench ({name}) printed {line}")
+    return rows
+
+
+def bench_in_process(dev) -> tuple[dict, dict, dict]:
+    """``facerec_torch.bench``'s ``prepare`` and ``measure`` in this process,
+    with every launch count set to 0 just before: K1, K2 and the NMS kernel
+    launched; the profiler's kernel names on one replay give K1 1, K2 1 and
+    NMS 5; each kernel held against its plain version on the bench's own
+    inputs. Returns (launches over ``measure``, held errors, its result)."""
+    import torch
+
+    from facerec_torch import bench
+
+    pipe, frames = bench.prepare(device=dev)
+    _zero_launches()
+    out, note = bench.measure(pipe, frames)
+    torch.cuda.synchronize()
+    launches = _launches()
+    if not all(launches.values()):
+        raise AssertionError(f"the bench path launched {launches}")
+    x = pipe.upload(frames)
+    r = pipe.process(frames)
+    replay = replay_launches("bench", pipe, x, _step_launches())
+    held = hold_path_kernels("bench", pipe, x, r)
+    return launches, held, {"line": out, "note": note, "replay_launches": replay}
+
+
+def bench_train_cli(card: str) -> dict:
+    """``python -m facerec_torch.bench_train`` in a subprocess for each of
+    ``BENCH_TRAIN_MODELS`` at the default batch (256): return code 0, the
+    last stdout line with the JAX tool's keys, no JAX module imported, and
+    ``train_step_ms`` (CUDA events over the captured replays) within
+    ``BENCH_TRAIN_DEVICE_RATIO`` of the device ms per step that
+    torch.profiler reads on the same step (the ``#`` line): the number is
+    the card's, not the host's."""
+    rows = {}
+    for mt in BENCH_TRAIN_MODELS:
+        rc, out, err, seconds, imported = _run_module(["facerec_torch.bench_train"],
+                                                      {"BENCH_TRAIN_MODEL": mt})
+        if rc != 0:
+            raise AssertionError(f"bench_train ({mt}) exited {rc}: {err[-3000:]}")
+        line = json.loads(out.strip().splitlines()[-1])
+        note = json.loads(next(x for x in err.splitlines() if x.startswith("# {"))[2:])
+        ratio = line["train_step_ms"] / note["captured_device_ms_per_step"]
+        rows[mt] = line | note | {"events_over_device_ms": ratio, "seconds": seconds}
+        print("bench_train: " + json.dumps(rows[mt] | {"card": card}), flush=True)
+        _no_jax(f"bench_train ({mt})", imported)
+        if not (tuple(line) == BENCH_TRAIN_KEYS and line["backend"] == "cuda"
+                and 1 / BENCH_TRAIN_DEVICE_RATIO <= ratio <= BENCH_TRAIN_DEVICE_RATIO):
+            raise AssertionError(f"bench_train ({mt}) printed {line}; events / device ms {ratio}")
+    return rows
+
+
 def enroll_host(rng):
     """Half the gallery from host normals, one upload (bench.py's small
     galleries). The last rows enrolled stay in ``enroll.rows``."""
@@ -1630,20 +1763,91 @@ def train_step_agrees(dev, model_type: str = "arcface") -> dict:
 
 def time_train_step(state, batches, model_type: str = "arcface", compute_dtype: str = "bfloat16",
                     steps: int = 20, warmup: int = 5) -> dict:
-    """The train step on device-resident distinct batches after warm-up:
-    ms/step by CUDA events, and the busy share over 3 steps."""
+    """The train step on device-resident distinct batches after warm-up,
+    captured (the replay ``train_model`` runs) and eager, in turns
+    (captured, eager, eager, captured): ms/step of each by CUDA events, and
+    the busy share and device ms of each over 3 steps."""
     from facerec_torch.train.steps import make_train_step
 
     step = make_train_step(model_type, compute_dtype)
     i = 0
 
-    def one():
-        nonlocal i
-        step(state, batches[i % len(batches)])
-        i += 1
+    def calling(fn):
+        def one():
+            nonlocal i
+            fn(state, batches[i % len(batches)])
+            i += 1
+        return one
 
-    ms = _time_ms(one, iters=steps, warmup=warmup)
-    return {"ms_per_step": ms, **device_busy(one)}
+    captured, eager = calling(step), calling(step.eager)
+    turns = [_time_ms(captured if graph else eager, iters=steps, warmup=warmup)
+             for graph in (1, 0, 0, 1)]
+    busy_eager = device_busy(eager)
+    return {"ms_per_step": (turns[0] + turns[3]) / 2, "ms_per_step_eager": (turns[1] + turns[2]) / 2,
+            "ms_turns": turns, **device_busy(captured),
+            "device_busy_share_eager": busy_eager["device_busy_share"],
+            "device_ms_per_step_eager": busy_eager["device_ms_per_step"]}
+
+
+def train_capture_agrees(dev) -> dict:
+    """``CAPTURE_STEPS`` captured train steps against as many eager steps
+    from copies of one state (the arcface_synth model with its dropout of
+    0.2 on, epoch 2, 32 faces of 160 px), compared per step on loss_sum,
+    grad_norm and every parameter (max abs difference), at f32 and bf16
+    compute. With deterministic cuDNN the eager steps run twice: where they
+    equal themselves bit for bit, the captured steps must equal them bit
+    for bit; where they do not, the captured steps' distance from the first
+    eager run must lie within ``CAPTURE_SPREAD`` times the largest
+    eager-against-eager distance of the same quantity over the steps. With
+    cuDNN's default algorithms (some gradients summed with atomics, so every
+    run draws its own rounding) the same distances are reported beside."""
+    import copy
+
+    import torch
+
+    from facerec_torch.train.steps import make_train_step
+
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in _mesh_train_batch().items()}
+    base = _mesh_train_state(dev)
+
+    def run(compute_dtype: str, graph: bool) -> list[list[torch.Tensor]]:
+        state = copy.deepcopy(base)
+        step = make_train_step("arcface", compute_dtype)
+        out = []
+        for _ in range(CAPTURE_STEPS):
+            m = (step if graph else step.eager)(state, batch)
+            out.append([m["loss_sum"].float(), m["grad_norm"].float(),
+                        torch.cat([p.detach().float().reshape(-1)
+                                   for p in state.model.parameters()])])
+        return out
+
+    def dist(a, b) -> list[list[float]]:  # [step][loss_sum, grad_norm, params]
+        return [[(x - y).abs().max().item() for x, y in zip(sa, sb)] for sa, sb in zip(a, b)]
+
+    res = {}
+    t0 = time.perf_counter()
+    deterministic = torch.backends.cudnn.deterministic
+    try:
+        for det in (True, False):
+            torch.backends.cudnn.deterministic = det
+            for compute_dtype in ("float32", "bfloat16"):
+                eager = [run(compute_dtype, False) for _ in range(2)]
+                got = dist(run(compute_dtype, True), eager[0])
+                spread = dist(eager[1], eager[0])
+                row = {"captured_vs_eager": got, "eager_vs_eager": spread}
+                if det:
+                    tol = [CAPTURE_SPREAD * max(st[q] for st in spread) for q in range(3)]
+                    exact = not any(tol)
+                    row["held"] = "bit for bit" if exact else f"within {tol}"
+                    row["ok"] = all(g <= t for st in got for g, t in zip(st, tol))
+                res[f"{'deterministic' if det else 'default'}_{compute_dtype}"] = row
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    print(f"train step captured against eager ({time.perf_counter() - t0:.1f} s; per step: "
+          "loss_sum, grad_norm, params max abs): " + json.dumps(res), flush=True)
+    if not all(v.get("ok", True) for v in res.values()):
+        raise AssertionError(f"the captured train step differs from the eager one: {res}")
+    return res
 
 
 def loader_images_per_s(index, cfg) -> dict:
@@ -1765,6 +1969,7 @@ def train(dev, card: str) -> tuple[dict, dict, dict, dict]:
         torch.cuda.empty_cache()
         tune_stats = tune(dev, root, Path(td) / "checkpoints", Path(td), card)
     agree = train_step_agrees(dev)
+    capture = train_capture_agrees(dev)
     flops = train_flops_per_image(state.model, cfg.image_size) * cfg.batch_size
     tflops = flops / (timed["ms_per_step"] * 1e-3) / 1e12
     stats = {
@@ -1776,6 +1981,9 @@ def train(dev, card: str) -> tuple[dict, dict, dict, dict]:
         "train_model_s": train_s, "epoch_s": [r["time_elapsed"] for r in hist],
         "ms_per_step": timed["ms_per_step"],
         "images_per_s": cfg.batch_size / (timed["ms_per_step"] * 1e-3),
+        "ms_per_step_eager": timed["ms_per_step_eager"], "ms_turns": timed["ms_turns"],
+        "device_busy_share_eager": timed["device_busy_share_eager"],
+        "device_ms_per_step_eager": timed["device_ms_per_step_eager"],
         "gflop_per_step": flops / 1e9, "model_tflops": tflops,
         "bf16_peak_share": tflops / (BF16_TC_FLOPS / 1e12),
         "epoch_images_per_s_with_loading": len(index) / epoch_s,
@@ -1786,6 +1994,7 @@ def train(dev, card: str) -> tuple[dict, dict, dict, dict]:
         "top_kernels_ms_per_step": timed["top_kernels_ms_per_step"],
         "peak_memory_gb": peak / 2**30, "launches_of_port_kernels": launches,
         "card_vs_cpu": {k: agree[k]["rel"] for k in ("loss", "grad_norm")},
+        "captured_vs_eager": {k: v["held"] for k, v in capture.items() if "held" in v},
     }
     return stats, eval_stats, zoo_stats, tune_stats
 
@@ -1830,8 +2039,10 @@ def zoo_train(dev, model_type: str, root: Path, checkpoints: Path) -> dict:
             "test_acc": out.get("test_acc"), "train_model_s": train_s,
             "steps": out["state"].step, "ms_per_step": timed["ms_per_step"],
             unit: cfg.batch_size / (timed["ms_per_step"] * 1e-3),
+            "ms_per_step_eager": timed["ms_per_step_eager"],
             "device_busy_share": timed["device_busy_share"],
             "device_ms_per_step": timed["device_ms_per_step"],
+            "device_busy_share_eager": timed["device_busy_share_eager"],
             "top_kernels_ms_per_step": timed["top_kernels_ms_per_step"],
             "peak_memory_gb": peak / 2**30,
             "parameters": out["summary"]["parameters"]["total"]}
@@ -3173,6 +3384,20 @@ def main() -> int:
         | {k: trained_read[k] for k in ("read_s", "load_checkpoint_s")}
         | {"accuracy_f32": identified["accuracy_f32"], "card": card}), flush=True)
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench_rows = bench_cli(card)
+    bench_cli_s = time.perf_counter() - t0
+    launches["bench"], held["bench"], bench_stats = bench_in_process(dev)
+    torch.cuda.empty_cache()
+    print("bench beside serve: " + json.dumps({
+        "bench_faces_per_sec": {k: v["value"] for k, v in bench_rows.items()},
+        "bench_transfer_inclusive_faces_per_sec":
+            bench_rows["transfer"]["transfer_inclusive_faces_per_sec"],
+        "bench_in_process_faces_per_sec": bench_stats["line"]["value"],
+        "bench_detected": bench_stats["line"]["detected"],
+        "serve_captured_faces_per_sec": served["serve"]["faces_per_sec"],
+        "phase_s": time.perf_counter() - t0, "subprocesses_s": bench_cli_s, "card": card}),
+        flush=True)
     mesh_launches, mesh_held, mesh_stats = mesh(dev, frames, pipes["serve"], serve_enroll.rows,
                                                 card)
     launches.update(mesh_launches)
@@ -3196,6 +3421,9 @@ def main() -> int:
     if any(launches["eval"].values()):
         raise AssertionError(f"the eval path launched a serve kernel: {launches['eval']}")
     torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    bench_train_cli(card)
+    print(f"bench_train: phase {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     launches["prep"] = prep(dev, card)["launches_of_port_kernels"]
     torch.cuda.empty_cache()

@@ -9,9 +9,9 @@ The JAX package's subcommands, flags and defaults, plus one top-level
 ``interactive`` (also the default with no command), ``download``,
 ``preprocess``, ``train`` (with ``--lr-finder``), ``evaluate``,
 ``predict``, ``cv``, ``hyperopt``, ``visualize``, ``compare-all``,
-``list-models``, ``check-gpu`` and ``demo`` (the Streamlit UI where
-``streamlit`` is installed, else headless) run. ``bench`` keeps its flags
-but exits 2 with a line that names what it waits for.
+``list-models``, ``check-gpu``, ``demo`` (the Streamlit UI where
+``streamlit`` is installed, else headless) and ``bench`` (``bench.py``'s
+benchmark, ``facerec_torch.bench``) run.
 Checkpoints and outputs go under ``$FACEREC_ROOT/outputs`` (default: the
 repository).
 
@@ -29,12 +29,6 @@ import argparse
 import json
 import sys
 from pathlib import Path
-
-# command -> why it does not run in the port yet
-NOT_PORTED = {
-    "bench": "bench is the JAX package's bench.py; the port runs end to end in chip_smoke.py "
-             "until a BENCHMARK.json exists",
-}
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -175,10 +169,10 @@ def main(argv: list[str] | None = None) -> int:
 
         initialize_distributed(device=dev)
 
-    if cmd in NOT_PORTED:
-        print(f"facerec_torch: '{cmd}' is not ported: {NOT_PORTED[cmd]} (ROADMAP.md section 1)",
-              file=sys.stderr)
-        return 2
+    if cmd == "bench":
+        from facerec_torch import bench
+
+        return bench.main(device=dev)
 
     if cmd == "interactive":
         from facerec_torch.cli.interactive import interactive_menu

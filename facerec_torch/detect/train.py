@@ -37,7 +37,7 @@ from facerec_torch.convert import from_jax, to_jax
 from facerec_torch.data.synthetic import _identity_params, render_scene
 from facerec_torch.detect.mtcnn import ONet, PNet, RNet, init_like_flax
 from facerec_torch.detect.weights import DEFAULT_DIR, save_detector_params
-from facerec_torch.train.state import OptaxChain
+from facerec_torch.train.state import OptaxChain, set_hyperparam
 
 NET_NAMES = {PNet: "pnet", RNet: "rnet", ONet: "onet"}
 
@@ -368,7 +368,7 @@ def train_net(net: nn.Module, size: int, n_scenes: int, steps: int, batch_size: 
         batch = {k: v[idx] for k, v in data_dev.items()}
         loss, cls = _net_loss(net(batch["image"]), batch, with_landmarks)
         grads = torch.autograd.grad(loss, params)
-        opt.hyperparams["learning_rate"] = cosine_lr(lr, steps, i)
+        set_hyperparam(opt, "learning_rate", cosine_lr(lr, steps, i))
         opt.step(list(grads))
         if stats is not None:
             history.append(torch.stack([loss.detach(), cls.detach()]))

@@ -236,6 +236,8 @@ class FacePipeline:
                                                                         self._graph_inputs)):
             self._graphs.clear()  # a graph reads these in place: a new one captures anew
             self._graph_inputs = inputs
+            # a pool is shared only while a graph holds it: the new graphs take a new one
+            self._pool = None
         key = (kind, tuple(frames.shape), frames.dtype, self.precise_align, self.face_margin,
                self.config)
         cap = self._graphs.get(key)

@@ -17,11 +17,21 @@ arithmetic, step for step, where ``torch.optim`` would differ:
 
 The arithmetic runs as multi-tensor (``torch._foreach_*``) operations, a few
 launches per step whatever the number of parameters.
+
+As in optax's ``inject_hyperparams``, the hyperparameters and the step
+count are device tensors (0-d, on the parameters' device), allocated once
+and written in place (``set_hyperparam`` fills them), and the bias
+corrections and RAdam's rectification branch are computed from the count
+on the device. A step therefore reads nothing from the host, and a
+captured CUDA graph of it (``train/steps.py``) reads the current values at
+the same addresses on every replay. The host keeps the values as set, so
+``hyperparams`` and ``state_dict`` read no device memory but the count.
 """
 
 from __future__ import annotations
 
-import dataclasses
+import copy
+import types
 
 import numpy as np
 import torch
@@ -43,11 +53,6 @@ def _f32(v: float) -> float:
     return float(np.float32(v))
 
 
-def _bias_correction(decay: float, count: int) -> float:
-    """``1 - decay ** count`` in f32, as optax computes it."""
-    return float(np.float32(1.0) - np.float32(decay) ** np.float32(count))
-
-
 def global_norm(tensors: list[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares of every element (a 0-d f32 tensor). On
     the CPU each tensor's norm accumulates in f64: PyTorch's f32 CPU norm
@@ -61,8 +66,8 @@ class OptaxChain:
     """The JAX trainer's optimizer over ``named_params`` (``(name,
     parameter)`` pairs): ``step(grads)`` updates the parameters in place.
     ``hyperparams`` holds ``learning_rate``, ``max_norm`` and
-    ``backbone_scale``; ``state_dict`` holds them, the step count and the
-    moments."""
+    ``backbone_scale`` as set (read-only: ``set_hyperparam`` writes them);
+    ``state_dict`` holds them, the step count and the moments."""
 
     def __init__(self, named_params, config: OptimizerConfig, model_type: str = "baseline"):
         self.config = config
@@ -74,90 +79,110 @@ class OptaxChain:
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.backbone = [any(k in BACKBONE_KEYS for k in n.split(".")) for n in self.names]
-        self.hyperparams = {
+        dev = self.params[0].device
+        self._hyperparams = {
             "learning_rate": config.learning_rate,
             "max_norm": MODEL_CLIP_NORMS.get(model_type, config.grad_clip_norm),
             "backbone_scale": 1.0,
         }
-        self.count = 0
+        self.hp_tensors = {k: torch.full((), _f32(v), device=dev)
+                           for k, v in self._hyperparams.items()}
+        self.count_tensor = torch.zeros((), dtype=torch.int32, device=dev)
+        self._decay = {b: torch.full((), _f32(b), device=dev) for b in (config.beta1, config.beta2)}
         slots = ["trace"] if self.kind == "sgd" else ["mu", "nu"] + (["nu_max"] if self.amsgrad else [])
         self.slots = {s: [torch.zeros_like(p) for p in self.params] for s in slots}
+
+    @property
+    def hyperparams(self) -> types.MappingProxyType:
+        return types.MappingProxyType(self._hyperparams)
+
+    @property
+    def count(self) -> int:
+        """Steps taken (read from the device)."""
+        return int(self.count_tensor)
 
     @torch.no_grad()
     def step(self, grads: list[torch.Tensor]) -> None:
         """One update from ``grads`` (one tensor per parameter, in order;
         modified in place)."""
-        cfg, hp = self.config, self.hyperparams
+        cfg, hp = self.config, self.hp_tensors
         g = list(grads)
-        scale = _f32(hp["backbone_scale"])
         frozen = [x for x, b in zip(g, self.backbone) if b]
-        if scale != 1.0 and frozen:
-            torch._foreach_mul_(frozen, scale)
+        if frozen:  # x 1.0 is exact: no host test of the scale
+            torch._foreach_mul_(frozen, hp["backbone_scale"])
         if cfg.use_grad_clip:
             norm = global_norm(g)
-            max_norm = torch.full((), _f32(hp["max_norm"]), device=norm.device)
-            under = norm < max_norm
+            under = norm < hp["max_norm"]
             torch._foreach_div_(g, torch.where(under, 1.0, norm))
-            torch._foreach_mul_(g, torch.where(under, 1.0, max_norm))
-        self.count += 1
+            torch._foreach_mul_(g, torch.where(under, 1.0, hp["max_norm"]))
+        self.count_tensor.add_(1)
         updates = self._base_updates(g)
-        torch._foreach_mul_(updates, -_f32(hp["learning_rate"]))
+        torch._foreach_mul_(updates, torch.neg(hp["learning_rate"]))
         torch._foreach_add_(self.params, updates)
 
+    def _bias_correction(self, decay: float, t: torch.Tensor) -> torch.Tensor:
+        """``1 - decay ** count`` in f32, as optax computes it (numpy's f32
+        ``**`` on the CPU; one code path whether captured or not)."""
+        return 1.0 - self._decay[decay] ** t
+
     def _base_updates(self, g: list[torch.Tensor]) -> list[torch.Tensor]:
-        cfg, t = self.config, self.count
+        cfg = self.config
         if self.kind == "sgd":
             trace = self.slots["trace"]
             torch._foreach_mul_(trace, cfg.momentum)
             torch._foreach_add_(trace, g)
             return [x.clone() for x in trace]
+        t = self.count_tensor.float()
         b1, b2 = cfg.beta1, cfg.beta2
         mu, nu = self.slots["mu"], self.slots["nu"]
         torch._foreach_mul_(mu, b1)
         torch._foreach_add_(mu, g, alpha=1.0 - b1)
         torch._foreach_mul_(nu, b2)
         torch._foreach_addcmul_(nu, g, g, value=1.0 - b2)
-        mu_hat = torch._foreach_div(mu, _bias_correction(b1, t))
-        nu_hat = torch._foreach_div(nu, _bias_correction(b2, t))
+        mu_hat = torch._foreach_div(mu, self._bias_correction(b1, t))
+        nu_hat = torch._foreach_div(nu, self._bias_correction(b2, t))
         if self.amsgrad:
             torch._foreach_maximum_(self.slots["nu_max"], nu_hat)
             nu_hat = self.slots["nu_max"]
-        if self.kind == "radam":
-            ro = self._radam_ro(b2, t)
-            if ro < RADAM_THRESHOLD:
-                return mu_hat
-            torch._foreach_mul_(mu_hat, self._radam_r(ro, b2))
         denom = torch._foreach_sqrt(nu_hat)
         torch._foreach_add_(denom, EPS)
+        if self.kind == "radam":
+            # optax's branch on ro, as a select: below the threshold the
+            # update is mu_hat (r and the denominator become exactly 1)
+            ro = self._radam_ro(b2, t)
+            rectify = ro >= RADAM_THRESHOLD
+            torch._foreach_mul_(mu_hat, torch.where(rectify, self._radam_r(ro, b2), 1.0))
+            on = rectify.float()
+            torch._foreach_mul_(denom, on)
+            torch._foreach_add_(denom, 1.0 - on)
         updates = torch._foreach_div(mu_hat, denom)
         if self.kind == "adamw":
             torch._foreach_add_(updates, self.params, alpha=cfg.weight_decay)
         return updates
 
-    @staticmethod
-    def _radam_ro(b2: float, t: int) -> float:
+    def _radam_ro(self, b2: float, t: torch.Tensor) -> torch.Tensor:
         """optax's ``ro = ro_inf - 2 t b2^t / (1 - b2^t)``, in f32: near the
         threshold (step 5 at b2 0.999) the rounding decides the branch."""
-        f = np.float32
-        ro_inf = f(2.0 / (1.0 - b2) - 1.0)
-        b2t = f(b2) ** f(t)
-        return float(ro_inf - f(2 * t) * b2t / (f(1) - b2t))
+        ro_inf = _f32(2.0 / (1.0 - b2) - 1.0)
+        b2t = self._decay[b2] ** t
+        return ro_inf - (2.0 * t) * b2t / (1.0 - b2t)
 
     @staticmethod
-    def _radam_r(ro: float, b2: float) -> float:
+    def _radam_r(ro: torch.Tensor, b2: float) -> torch.Tensor:
         f = np.float32
         ro_inf = f(2.0 / (1.0 - b2) - 1.0)
-        ro = f(ro)
-        return float(np.sqrt((ro - f(4)) * (ro - f(2)) * ro_inf
-                             / ((ro_inf - f(4)) * (ro_inf - f(2)) * ro)))
+        return torch.sqrt((ro - 4.0) * (ro - 2.0) * float(ro_inf)
+                          / (float((ro_inf - f(4)) * (ro_inf - f(2))) * ro))
 
     def state_dict(self) -> dict:
-        return {"count": self.count, "hyperparams": dict(self.hyperparams),
+        return {"count": self.count, "hyperparams": dict(self._hyperparams),
                 "slots": {s: dict(zip(self.names, v)) for s, v in self.slots.items()}}
 
     def load_state_dict(self, d: dict) -> None:
-        self.count = int(d["count"])
-        self.hyperparams.update({k: float(v) for k, v in d["hyperparams"].items()})
+        """In place: a captured step goes on reading the same tensors."""
+        self.count_tensor.fill_(int(d["count"]))
+        for k, v in d["hyperparams"].items():
+            set_hyperparam(self, k, v)
         with torch.no_grad():
             for s, tensors in self.slots.items():
                 saved = d["slots"][s]
@@ -173,31 +198,58 @@ def make_optimizer(named_params, config: OptimizerConfig, model_type: str = "bas
 
 
 def set_hyperparam(opt_state: OptaxChain, name: str, value: float) -> OptaxChain:
-    """Set an injected hyperparameter (host-side, between epochs)."""
+    """Set an injected hyperparameter (host-side, between steps): the host
+    value, and the device tensor in place."""
     if name not in opt_state.hyperparams:
         raise KeyError(name)
-    opt_state.hyperparams[name] = float(value)
+    opt_state._hyperparams[name] = float(value)
+    opt_state.hp_tensors[name].fill_(_f32(value))
     return opt_state
 
 
-@dataclasses.dataclass
 class TrainState:
     """What the train step reads and advances. ``model`` holds the
     parameters and the BatchNorm statistics; ``opt_state`` the optimizer;
     ``seed`` and ``step`` seed each step's dropout draws, so a resumed run
-    draws what an uninterrupted one would."""
+    draws what an uninterrupted one would.
 
-    model: nn.Module
-    opt_state: OptaxChain
-    seed: int
-    step: int = 0
-    epoch: float = 0.0
+    The draws come from one generator on the parameters' device
+    (``generator``), reseeded to ``seed * 1_000_003 + step`` before every
+    step (``dropout_generator``): a replayed CUDA graph that registered it
+    draws what a fresh generator with that seed draws. ``epoch`` (ArcFace's
+    margin schedule reads it) is set on the host and held in a 0-d device
+    tensor, ``epoch_tensor``, written in place."""
 
-    def dropout_generator(self, device: torch.device) -> torch.Generator:
-        """A generator on ``device`` seeded from (seed, step)."""
-        gen = torch.Generator(device=device)
-        gen.manual_seed((self.seed * 1_000_003 + self.step) % (1 << 63))
-        return gen
+    def __init__(self, model: nn.Module, opt_state: OptaxChain, seed: int, step: int = 0,
+                 epoch: float = 0.0):
+        self.model = model
+        self.opt_state = opt_state
+        self.seed = seed
+        self.step = step
+        self.device = opt_state.params[0].device
+        self.generator = torch.Generator(device=self.device)
+        self.epoch_tensor = torch.zeros((), device=self.device)
+        self.epoch = epoch
+
+    @property
+    def epoch(self) -> float:
+        return self._epoch
+
+    @epoch.setter
+    def epoch(self, value: float) -> None:
+        self._epoch = float(value)
+        self.epoch_tensor.fill_(self._epoch)
+
+    def dropout_generator(self) -> torch.Generator:
+        """``generator``, seeded from (seed, step)."""
+        self.generator.manual_seed((self.seed * 1_000_003 + self.step) % (1 << 63))
+        return self.generator
+
+    def __deepcopy__(self, memo: dict) -> "TrainState":
+        """A copy with its own model, optimizer (over the copy's parameters),
+        generator and epoch tensor."""
+        return TrainState(copy.deepcopy(self.model, memo), copy.deepcopy(self.opt_state, memo),
+                          self.seed, self.step, self.epoch)
 
 
 def create_train_state(model: nn.Module, config, model_type: str,

@@ -20,6 +20,22 @@ autocast with f32 parameters; the margin logits and the loss stay f32.
 The train step's parts are named ranges (``train_step.forward``,
 ``.backward``, ``.grads``, ``.optimizer``) that torch.profiler reports.
 
+On a card with one rank (no mesh, or a mesh of world size 1), the train
+step runs as one captured program, the counterpart of JAX's jitted step:
+``make_train_step`` returns a ``TrainStep`` that replays a
+``torch.cuda.CUDAGraph`` of the eager body. The graph is captured at the
+first call for each batch shape and dtype, after two eager warm-up runs on
+a side stream from a snapshot of the state, which is then put back, so the
+first call's step is a replay too; a capture that fails raises. Each call
+copies the batch into the graph's static input, reseeds the state's
+dropout generator (registered with the graph) from (seed, step), replays,
+and copies the metrics out, all in stream order. The graph reads and
+writes the parameters, BatchNorm statistics, optimizer moments, step
+count, hyperparameters and epoch in place; a new state, model or
+optimizer object, or parameters moved to new storage, captures anew.
+``TrainStep.eager`` runs the body itself, as the CPU and a mesh of several
+ranks do (gloo's collectives cannot be captured).
+
 With a mesh of more than one data rank the batch is this rank's slice of
 the global batch, and the steps compute what one process computes on the
 global batch (as GSPMD does for the JAX steps): BatchNorm and dropout see
@@ -32,7 +48,7 @@ the same metrics.
 
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, NamedTuple
 
 import torch
 from torch.profiler import record_function
@@ -50,7 +66,7 @@ def _autocast(device: torch.device, compute_dtype: str):
     return torch.autocast(device.type, dtype=torch.bfloat16, enabled=compute_dtype == "bfloat16")
 
 
-def _forward(model, model_type: str, batch: dict, epoch: float,
+def _forward(model, model_type: str, batch: dict, epoch: torch.Tensor | float,
              generator: torch.Generator | None = None):
     """The model's outputs in its current mode: an arcface model takes the
     labels (margin logits in training, cosine logits in eval); a siamese
@@ -106,22 +122,103 @@ def _psum_grads(grads: list[torch.Tensor], mesh: Mesh) -> list[torch.Tensor]:
     return [part.view(g.shape) for g, part in zip(grads, flat.split([g.numel() for g in grads]))]
 
 
-def make_train_step(model_type: str, compute_dtype: str = "float32",
-                    mesh: Mesh | None = None) -> Callable:
-    loss_fn = get_criterion(model_type)
-    sharded = _data_mesh(mesh)
+WARMUP_RUNS = 2  # eager runs of the step on a side stream before its capture
 
-    def train_step(state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+
+class _Captured(NamedTuple):
+    """One captured step: its graph, static batch and static metrics."""
+    graph: torch.cuda.CUDAGraph
+    batch: dict[str, torch.Tensor]
+    metrics: dict[str, torch.Tensor]
+
+
+class TrainStep:
+    """``step(state, batch) -> metrics``: one train step that advances
+    ``state`` in place; on a card with one rank, a replay of its CUDA graph
+    (module docstring)."""
+
+    def __init__(self, model_type: str, compute_dtype: str = "float32",
+                 mesh: Mesh | None = None):
+        self.model_type = model_type
+        self.compute_dtype = compute_dtype
+        self._loss_fn = get_criterion(model_type)
+        self._sharded = _data_mesh(mesh)
+        self._capturable = mesh is None or mesh.world_size == 1
+        self._graphs: dict[tuple, _Captured] = {}
+        self._graph_inputs: tuple | None = None  # what the graphs read in place
+        self._pool = None  # the graphs' shared memory pool
+
+    def __call__(self, state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+        if state.device.type != "cuda" or not self._capturable:
+            return self.eager(state, batch)
+        model = state.model
+        inputs = (state, model, state.opt_state,
+                  *(t.data_ptr() for t in (*model.parameters(), *model.buffers())))
+        if inputs != self._graph_inputs:
+            self._graphs.clear()  # a graph reads these in place: a new one captures anew
+            self._graph_inputs = inputs
+            # a pool is shared only while a graph holds it: the new graphs take a new one
+            self._pool = None
+        key = tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in batch.items()))
+        cap = self._graphs.get(key)
+        if cap is None:
+            cap = self._graphs[key] = self._capture(state, batch)
+        if not model.training:  # as the body would: a replay runs no Python
+            model.train()
+        for k, v in batch.items():
+            cap.batch[k].copy_(v)
+        state.dropout_generator()
+        cap.graph.replay()
+        state.step += 1
+        return {k: v.clone() for k, v in cap.metrics.items()}
+
+    def eager(self, state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+        """The step as a sequence of launches (no graph)."""
+        metrics = self._body(state, batch, state.dropout_generator())
+        state.step += 1
+        return metrics
+
+    def _capture(self, state: TrainState, batch: dict) -> _Captured:
+        """Warm the body up on a side stream from a snapshot of ``state``,
+        put the snapshot back, then capture the body on a static copy of
+        ``batch`` into the step's pool, with the state's generator
+        registered. Raises if the capture fails."""
+        dev = state.device
+        with torch.cuda.device(dev):
+            static = {k: v.clone() for k, v in batch.items()}
+            live = _state_tensors(state)
+            with torch.no_grad():
+                saved = [t.clone() for t in live]
+            side = torch.cuda.Stream(dev)
+            side.wait_stream(torch.cuda.current_stream(dev))
+            with torch.cuda.stream(side):
+                for _ in range(WARMUP_RUNS):
+                    self._body(state, static, state.dropout_generator())
+            torch.cuda.current_stream(dev).wait_stream(side)
+            with torch.no_grad():
+                torch._foreach_copy_(live, saved)
+            del saved
+            if self._pool is None:
+                self._pool = torch.cuda.graph_pool_handle()
+            graph = torch.cuda.CUDAGraph()
+            graph.register_generator_state(state.generator)
+            with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
+                metrics = self._body(state, static, state.generator)
+        return _Captured(graph, static, metrics)
+
+    def _body(self, state: TrainState, batch: dict,
+              generator: torch.Generator) -> dict[str, torch.Tensor]:
+        """The eager step: forward, loss, gradients, metrics, optimizer."""
+        model_type, sharded = self.model_type, self._sharded
         model = state.model
         if not model.training:
             model.train()
-        dev = _device(model)
+        dev = state.device
         params = state.opt_state.params
         with record_function("train_step.forward"):
-            with _autocast(dev, compute_dtype), data_parallel(sharded):
-                outputs = _forward(model, model_type, batch, state.epoch,
-                                   state.dropout_generator(dev))
-            loss = loss_fn(outputs, batch, batch.get("mask"))
+            with _autocast(dev, self.compute_dtype), data_parallel(sharded):
+                outputs = _forward(model, model_type, batch, state.epoch_tensor, generator)
+            loss = self._loss_fn(outputs, batch, batch.get("mask"))
             objective = loss
             if sharded is not None:  # this rank's share of the global masked mean
                 local = _count(outputs, batch)
@@ -140,10 +237,20 @@ def make_train_step(model_type: str, compute_dtype: str = "float32",
             metrics["grad_norm"] = global_norm(grads)
         with record_function("train_step.optimizer"):
             state.opt_state.step(grads)
-        state.step += 1
         return metrics
 
-    return train_step
+
+def _state_tensors(state: TrainState) -> list[torch.Tensor]:
+    """Every tensor a step writes: parameters, buffers, optimizer moments
+    and the step count."""
+    opt = state.opt_state
+    return [*state.model.state_dict().values(), *(t for ts in opt.slots.values() for t in ts),
+            opt.count_tensor]
+
+
+def make_train_step(model_type: str, compute_dtype: str = "float32",
+                    mesh: Mesh | None = None) -> TrainStep:
+    return TrainStep(model_type, compute_dtype, mesh)
 
 
 def _count(outputs, batch: dict) -> torch.Tensor:
@@ -167,7 +274,7 @@ def make_eval_step(model_type: str, compute_dtype: str = "float32",
         if state.model.training:
             state.model.eval()
         with _autocast(_device(state.model), compute_dtype):
-            outputs = _forward(state.model, model_type, batch, state.epoch)
+            outputs = _forward(state.model, model_type, batch, state.epoch_tensor)
         loss = loss_fn(outputs, batch, batch.get("mask"))
         metrics = _batch_metrics(model_type, outputs, batch)
         metrics["loss_sum"] = loss * metrics["count"]

@@ -20,7 +20,7 @@ import pytest
 import torch
 
 from facerec_torch.cli import compare as port_compare
-from facerec_torch.cli.main import NOT_PORTED, _train_config_from_args, build_parser, main
+from facerec_torch.cli.main import _train_config_from_args, build_parser, main
 from facerec_tpu.cli.main import _train_config_from_args as jax_train_config_from_args
 from facerec_tpu.cli.main import build_parser as jax_build_parser
 from facerec_tpu.cli.main import main as jax_main
@@ -92,13 +92,24 @@ def test_check_gpu_on_the_cpu(capsys):
     assert info["backend"] == "cpu" and info["device_count"] == 1 and info["devices"] == ["cpu"]
 
 
-@pytest.mark.parametrize("argv", [["bench"]])
-def test_unported_commands_exit_2(argv, capsys):
-    assert sorted(NOT_PORTED) == ["bench"]
-    assert main(["--device", "cpu"] + argv) == 2
-    cmd = argv[0]
-    err = capsys.readouterr().err.strip().splitlines()
-    assert err == [f"facerec_torch: '{cmd}' is not ported: {NOT_PORTED[cmd]} (ROADMAP.md section 1)"]
+def test_bench_command_runs_the_port_bench(monkeypatch, capsys):
+    """``bench`` reaches ``facerec_torch.bench`` (bench.py's counterpart),
+    here at 2 frames of 240 x 320, a 16-row gallery and 1 timed step, and
+    prints its result line last on stdout and its ``#`` line on stderr."""
+    from facerec_torch import bench
+
+    monkeypatch.setenv("BENCH_BATCH", "2")
+    monkeypatch.setenv("BENCH_GALLERY", "16")
+    monkeypatch.setattr(bench, "FRAME_HW", (240, 320))
+    monkeypatch.setattr(bench, "ITERS", 1)
+    assert main(["--device", "cpu", "bench"]) == 0
+    out, err = capsys.readouterr()
+    line = json.loads(out.strip().splitlines()[-1])
+    assert line["detected_expected"] == 16 and line["unit"] == "faces/sec/chip"
+    assert "vs_baseline" not in line and line["value"] > 0
+    note = err.strip().splitlines()[-1]
+    assert note.startswith("# frames/sec=") and "timing=host_clock" in note
+    assert note.endswith("card=cpu") and "device_ms_per_step=not_measured" in note
 
 
 @pytest.fixture(scope="module")

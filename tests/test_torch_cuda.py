@@ -600,3 +600,74 @@ def test_demo_double_buffering_on_the_card(dev, no_tf32):
     for g, r in zip(got, serial):
         assert [(f["slot"], f["name"], f["box"]) for f in g] == [
             (f["slot"], f["name"], f["box"]) for f in r]
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_captured_train_step_matches_eager(dev, no_tf32, compute_dtype):
+    """Three replays of the captured train step against three eager steps
+    from copies of one state (dropout on, deterministic cuDNN): loss_sum,
+    grad_norm and every parameter and buffer bit for bit, the step count on
+    the device and the host's step advanced alike; a new state captures
+    anew, also while a tensor of the dropped graph's pool is still alive."""
+    import copy
+
+    from facerec_torch.models import get_model
+    from facerec_torch.train.state import create_train_state
+    from facerec_torch.train.steps import make_train_step
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    batch = {"image": torch.randn(8, 64, 64, 3, generator=gen, device=dev),
+             "label": torch.arange(8, device=dev, dtype=torch.int32) % 4,
+             "mask": torch.ones(8, device=dev)}
+    base = create_train_state(get_model("arcface", num_classes=4), TrainConfig(seed=0),
+                              "arcface", dev)
+    base.epoch = 2.0
+    prev = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        states = [copy.deepcopy(base) for _ in range(2)]
+        step = make_train_step("arcface", compute_dtype)
+        for _ in range(3):
+            got, want = step(states[0], batch), step.eager(states[1], batch)
+            assert all(torch.equal(got[k], want[k]) for k in want)
+            assert all(torch.equal(a, b) for a, b in zip(states[0].model.state_dict().values(),
+                                                         states[1].model.state_dict().values()))
+        assert len(step._graphs) == 1
+        assert states[0].step == states[1].step == 3
+        assert states[0].opt_state.count == states[1].opt_state.count == 3
+        held = next(iter(step._graphs.values())).metrics  # keeps the first pool in use
+        other = copy.deepcopy(base)
+        step(other, batch)
+        assert step._graph_inputs[0] is other and other.step == 1
+        assert torch.isfinite(held["loss_sum"])
+    finally:
+        torch.backends.cudnn.deterministic = prev
+
+
+def test_bench_on_the_card(dev, no_tf32):
+    """``facerec_torch.bench`` at 2 frames of 240 x 320 and a 16-row
+    gallery: bench.py's keys less ``vs_baseline``, the fill, CUDA-event
+    timing."""
+    from facerec_torch import bench
+
+    pipe, frames = bench.prepare(batch=2, gallery=16, frame_hw=(240, 320), device=dev)
+    out, note = bench.measure(pipe, frames, iters=2)
+    assert tuple(out) == ("metric", "value", "unit", "detected", "detected_expected",
+                          "detected_ok", "detected_p090", "detected_p090_ok")
+    assert out["detected_ok"] and out["value"] > 0 and out["detected_expected"] == 16
+    assert note["timing"] == "cuda_events" and note["device_ms_per_step"] > 0
+    assert note["card"].startswith("NVIDIA")
+
+
+def test_serve_recaptures_while_the_old_pool_is_in_use(dev, no_tf32):
+    """A new detector object captures the step anew, with the old graph's
+    outputs still referenced (its memory pool not yet free)."""
+    import copy
+
+    pipe = _tiny_pipeline(dev)
+    frames = _demo_frames()
+    first = pipe.process(frames)
+    held = next(iter(pipe._graphs.values())).outputs
+    pipe.detector = copy.deepcopy(pipe.detector)
+    again = pipe.process(frames)
+    assert _results_equal(again, first) and len(held) == len(first)

@@ -395,6 +395,79 @@ def test_optimizer_state_round_trips():
         OptaxChain(p.items(), OptimizerConfig(name="lamb"))
 
 
+def test_hyperparameters_and_count_stay_in_place():
+    """The injected hyperparameters and the step count are device tensors
+    written in place: ``set_hyperparam``, a step and ``load_state_dict``
+    leave each at its storage (a captured step reads them there), with the
+    f32 value set; ``hyperparams`` is read-only."""
+    p = {"backbone.w": torch.ones(3), "head.w": torch.ones(2)}
+    opt = OptaxChain(p.items(), OptimizerConfig(name="radam"))
+    ptrs = {k: t.data_ptr() for k, t in opt.hp_tensors.items()} | {
+        "count": opt.count_tensor.data_ptr()}
+    for name, value in (("learning_rate", 0.1), ("max_norm", 0.7), ("backbone_scale", 0.0)):
+        set_hyperparam(opt, name, value)
+        assert opt.hyperparams[name] == value
+        assert opt.hp_tensors[name].item() == np.float32(value)
+    for _ in range(6):  # past RAdam's threshold (ro >= 5 from step 6 at b2 0.999)
+        opt.step([torch.full((3,), 0.5), torch.full((2,), -0.25)])
+    opt.load_state_dict(opt.state_dict())
+    assert opt.count == 6 and opt.count_tensor.dtype == torch.int32
+    assert ptrs == {k: t.data_ptr() for k, t in opt.hp_tensors.items()} | {
+        "count": opt.count_tensor.data_ptr()}
+    with pytest.raises(TypeError):
+        opt.hyperparams["learning_rate"] = 1.0
+    with pytest.raises(KeyError):
+        set_hyperparam(opt, "momentum", 0.9)
+
+
+def test_state_dict_keeps_its_format(tmp_path):
+    """``state_dict`` holds the count as an int and the hyperparameters as
+    the floats set, as checkpoints of either trainer hold them, and a dict in
+    that format loads into the device tensors (through ``torch.save``)."""
+    p = {"backbone.w": torch.ones(3), "head.w": torch.ones(2)}
+    old = {"count": 7, "hyperparams": {"learning_rate": 3e-4, "max_norm": 0.3,
+                                       "backbone_scale": 0.0},
+           "slots": {s: {"backbone.w": torch.full((3,), 0.25), "head.w": torch.full((2,), 2.0)}
+                     for s in ("mu", "nu", "nu_max")}}
+    torch.save(old, tmp_path / "opt.pt")
+    opt = OptaxChain(p.items(), OptimizerConfig(name="adamw", amsgrad=True))
+    opt.load_state_dict(torch.load(tmp_path / "opt.pt"))
+    d = opt.state_dict()
+    assert type(d["count"]) is int and d["count"] == 7
+    assert d["hyperparams"] == old["hyperparams"]
+    assert all(type(v) is float for v in d["hyperparams"].values())
+    assert {k: t.item() for k, t in opt.hp_tensors.items()} == {
+        k: float(np.float32(v)) for k, v in old["hyperparams"].items()}
+    for s, slot in old["slots"].items():
+        for k, t in slot.items():
+            assert torch.equal(d["slots"][s][k], t)
+
+
+def test_train_state_epoch_generator_and_copy():
+    """``epoch`` is a host float held in a device tensor filled in place;
+    ``dropout_generator`` draws what a fresh generator seeded from (seed,
+    step) draws; a deep copy has its own model, an optimizer over the
+    copy's parameters, and its own generator and epoch tensor."""
+    import copy
+
+    net = torch.nn.Linear(3, 2)
+    state = TrainState(net, OptaxChain(net.named_parameters(), OptimizerConfig()), seed=5,
+                       step=4, epoch=1.0)
+    ptr = state.epoch_tensor.data_ptr()
+    state.epoch = 3
+    assert state.epoch == 3.0 and state.epoch_tensor.item() == 3.0
+    assert state.epoch_tensor.data_ptr() == ptr
+    fresh = torch.Generator().manual_seed(5 * 1_000_003 + 4)
+    for _ in range(2):  # reseeded each time
+        assert torch.equal(torch.rand(4, generator=state.dropout_generator()),
+                           torch.rand(4, generator=fresh.manual_seed(5 * 1_000_003 + 4)))
+    twin = copy.deepcopy(state)
+    assert twin.model is not net and twin.opt_state.params == list(twin.model.parameters())
+    assert all(a is not b for a, b in zip(twin.opt_state.params, state.opt_state.params))
+    assert twin.generator is not state.generator and twin.epoch_tensor is not state.epoch_tensor
+    assert (twin.seed, twin.step, twin.epoch) == (5, 4, 3.0)
+
+
 # --------------------------------------------------------------- train steps
 
 @pytest.fixture(scope="module")
