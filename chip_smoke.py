@@ -96,9 +96,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
               own inputs; its faces/s beside the serve phase's captured
               figure;
      mesh     the mesh path (``facerec_torch/parallel``): at world size 1
-              over NCCL, the serve step through ``FacePipeline(mesh=(1, 1))``
-              and one f32 ArcFace train step through the mesh path, each
-              ``torch.equal`` to the plain one (both kernels once); then two
+              over NCCL, the serve step through ``FacePipeline(mesh=(1, 1))``,
+              captured and replayed (the replay ``torch.equal`` to the eager
+              mesh step; K1 1, K2 1 and NMS 5 per replay, by count and by
+              the profiler's kernel names), and one f32 ArcFace train step
+              through the mesh path, each ``torch.equal`` to the plain one;
+              then two
               ranks that time-share the card over gloo (spawned; a rank that
               fails fails the phase): (data 1, model 2) serve on a
               1,048,576-row bf16 gallery with 786,431 rows enrolled on the
@@ -120,6 +123,11 @@ Phases, each of which raises (and so exits nonzero) on failure:
               training), each kernel held on the rank's own inputs, faces/s
               and step ms per rank (two ranks on one card: no multi-card
               speed);
+     multichip  where the machine has four cards: ``python -m
+              facerec_torch.multichip`` (the mesh path at full width, one rank
+              a card over NCCL; it fails on any failed hold), its launches and
+              kernel errors by layout and rank added to the kernels line; on
+              fewer cards one line says that it needs four cards;
      fold     the embed stage alone, every BatchNorm folded into its
               producer against unfolded, for the serve path's ArcFace and
               serve_facenet's FaceNet on each path's own 384 crops (bf16,
@@ -933,37 +941,13 @@ def _step_launches(precise: bool = False, steps: int = 1) -> dict:
             "nms_fixed_point": len(NMS_SITES) * steps}
 
 
-def record_nms(pipe, x) -> list:
-    """The (sup, keep0) inputs of each NMS fixed point of one eager detect
-    of ``x`` by ``pipe``'s detector, in call order (``NMS_SITES``)."""
-    import torch
-
-    from facerec_torch.ops import nms as nms_module
-
-    calls, kernel = [], nms_module.nms_fixed_point
-
-    def recording(sup, keep0, unroll=4):
-        calls.append((sup.clone(), keep0.clone()))
-        return kernel(sup, keep0, unroll)
-
-    # the wrapper counts on the module's name, here the recorder: a
-    # recording detect leaves the launch counts as they were
-    recording.launches = 0
-    nms_module.nms_fixed_point = recording
-    try:
-        with torch.no_grad():
-            pipe.detector.detect(x)
-    finally:
-        nms_module.nms_fixed_point = kernel
-    return calls
-
-
 def hold_nms(path: str, pipe, x) -> dict:
     """The NMS kernel against its plain loop, bit for bit (keep and rounds),
     on each of the five calls of the path's step, on the path's own inputs;
     the rounds each call took (max and mean over its rows)."""
     import torch
 
+    from facerec_torch.multichip import record_nms
     from facerec_torch.ops.nms import nms_fixed_point, nms_fixed_point_plain
 
     calls = record_nms(pipe, x)
@@ -1249,6 +1233,8 @@ def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
     held = hold_path_kernels(path, pipe, x, r)
     extra["kernels_held"] = held
     if path == "serve":
+        from facerec_torch.multichip import record_nms
+
         extra["nms_time"] = time_nms(record_nms(pipe, x))
         extra["dispatch_demo"] = dispatch_returns_early(pipe, frames)
     if path in ("serve", "serve_facenet"):
@@ -2936,12 +2922,15 @@ def _mesh_train_per_step(state, batch, mesh) -> tuple[list[dict], list[dict]]:
 
 def mesh_one_rank(dev, serve_pipe, frames, rows) -> tuple[dict, object]:
     """The mesh path at world size 1 over NCCL: the serve step through
-    ``FacePipeline(mesh=(1, 1))`` against the plain pipeline with the same
-    detector, embedder and gallery, ``torch.equal`` on every field, both
-    kernels once; one f32 ArcFace train step through the mesh path against
-    the plain step, ``torch.equal`` on loss, grad_norm and every parameter
-    (cuDNN set deterministic for the two, so that its backward sums in one
-    order). Returns (launches, the plain step's result)."""
+    ``FacePipeline(mesh=(1, 1))``, captured (its first call) and replayed:
+    one replay against the plain pipeline with the same detector, embedder
+    and gallery, ``torch.equal`` on every field, and against the eager mesh
+    step, ``torch.equal`` too; one replay launches K1 and K2 once and the
+    NMS kernel five times, by the counts and by the profiler's kernel names;
+    one f32 ArcFace train step through the mesh path against the plain
+    step, ``torch.equal`` on loss, grad_norm and every parameter (cuDNN set
+    deterministic for the two, so that its backward sums in one order).
+    Returns (launches, the plain step's result)."""
     import tempfile
 
     import torch
@@ -2953,18 +2942,26 @@ def mesh_one_rank(dev, serve_pipe, frames, rows) -> tuple[dict, object]:
 
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", init_method=f"file://{tmp}/rendezvous", world_size=1,
-                                rank=0)
+                                rank=0, device_id=torch.device("cuda",
+                                                               torch.cuda.current_device()))
         try:
             mesh = build_mesh(MeshConfig(), device=dev)
             pipe = FacePipeline(serve_pipe.config, FRAME_HW, serve_pipe.detector,
                                 serve_pipe.embedder, embed_dim=512, mesh=mesh)
             pipe.gallery.add_many([f"id_{i}" for i in range(len(rows))], rows)
             plain = serve_pipe.process(frames)
+            pipe.process(frames)  # the warm-ups, the capture, one replay
+            torch.cuda.synchronize()
+            if not pipe._graphs:
+                raise AssertionError("the (1, 1) mesh step was not captured")
             _zero_launches()
             r = pipe.process(frames)
             torch.cuda.synchronize()
             launches = _launches()
             same = {f: torch.equal(a, b) for f, a, b in zip(r._fields, r, plain)}
+            x = pipe.upload(frames)
+            graph_agrees("mesh_1x1", pipe, x, r)
+            replay_launches("mesh_1x1", pipe, x, _step_launches())
             deterministic = torch.backends.cudnn.deterministic
             torch.backends.cudnn.deterministic = True
             try:
@@ -2981,7 +2978,8 @@ def mesh_one_rank(dev, serve_pipe, frames, rows) -> tuple[dict, object]:
                 states[0].model.state_dict().values(), states[1].model.state_dict().values()))
         finally:
             dist.destroy_process_group()
-    out = {"serve_equal": same, "train_equal": train_same, "launches": launches}
+    out = {"serve_equal": same, "train_equal": train_same, "launches": launches,
+           "replayed": True}
     print("mesh 1x1 (nccl): " + json.dumps(out), flush=True)
     if not (all(same.values()) and all(train_same.values())):
         raise AssertionError(f"the mesh path at world size 1 differs from the plain path: {out}")
@@ -3113,21 +3111,6 @@ def _spawn_mesh_ranks(tmp: str, world: int = 2) -> list[dict]:
     return [torch.load(f"{tmp}/rank{r}.pt") for r in range(world)]
 
 
-def _near_ties(q, gallery, ref_idx, got_idx) -> tuple[int, float]:
-    """Slots whose index differs from the one-process step's, and the
-    largest gap between the two rows' one-process scores there (queries
-    rounded to the gallery dtype, as K1 rounds them)."""
-    import torch
-
-    differ = got_idx != ref_idx
-    if not differ.any():
-        return 0, 0.0
-    qq = q.to(gallery.dtype).float()[:, None, :].expand(-1, ref_idx.shape[1], -1)[differ]
-    a = (qq * gallery[ref_idx[differ].long()].float()).sum(-1)
-    b = (qq * gallery[got_idx[differ].long()].float()).sum(-1)
-    return int(differ.sum()), (a - b).abs().max().item()
-
-
 def _agreement(got: dict, plain, data_index: int) -> dict:
     """A (2, 1) rank's results against the one-process 48-frame step's rows
     of its frames: the same valid slots, the share of slots with the same
@@ -3162,6 +3145,7 @@ def mesh(dev, frames, serve_pipe, rows, card) -> tuple[dict, dict, dict]:
     import numpy as np
     import torch
 
+    from facerec_torch.multichip import near_ties
     from facerec_torch.serve.pipeline import FacePipeline
 
     t0 = time.perf_counter()
@@ -3200,9 +3184,9 @@ def mesh(dev, frames, serve_pipe, rows, card) -> tuple[dict, dict, dict]:
     for rank, got in enumerate(ranks):
         g = got["1x2"]
         launches[f"mesh_1x2_rank{rank}"] = g["launches"]
-        ties, gap = _near_ties(q, big.gallery.embeddings, ref.match_indices.reshape(-1, 5),
+        ties, gap = near_ties(q, big.gallery.embeddings, ref.match_indices.reshape(-1, 5),
                                g["idx"].to(dev).reshape(-1, 5))
-        ties2, gap2 = _near_ties(q, big.gallery.embeddings,
+        ties2, gap2 = near_ties(q, big.gallery.embeddings,
                                  ref_after.match_indices.reshape(-1, 5),
                                  g["idx_after"].to(dev).reshape(-1, 5))
         err = max((g["scores"].to(dev) - ref.match_scores).abs().max().item(),
@@ -3282,6 +3266,47 @@ def mesh(dev, frames, serve_pipe, rows, card) -> tuple[dict, dict, dict]:
             for lay in ("1x2", "2x1")}
     stats["phase_s"] = time.perf_counter() - t0
     return launches, held, stats
+
+
+MULTICHIP_CARDS = 4
+MULTICHIP_TIMEOUT_S = 900
+
+
+def multichip(card: str) -> tuple[dict, dict] | None:
+    """Where the machine has ``MULTICHIP_CARDS`` cards: ``python -m
+    facerec_torch.multichip`` (the mesh path at full width, one rank per
+    card over NCCL; it fails on any failed hold), whose summary gives each
+    layout's and rank's launches and kernel errors. Returns (launches,
+    held), or None on a machine with fewer cards, which it says."""
+    import tempfile
+
+    import torch
+
+    n = torch.cuda.device_count()
+    if n < MULTICHIP_CARDS:
+        print(f"multichip: the four-card phases need {MULTICHIP_CARDS} cards; "
+              f"this machine has {n}", flush=True)
+        return None
+    with tempfile.TemporaryDirectory(prefix="facerec_multichip_") as tmp:
+        out = Path(tmp) / "multichip.json"
+        t0 = time.perf_counter()
+        res = subprocess.run([sys.executable, "-m", "facerec_torch.multichip", "--out", str(out)],
+                             cwd=ROOT, capture_output=True, text=True,
+                             timeout=MULTICHIP_TIMEOUT_S + 300)
+        for line in res.stdout.splitlines():
+            if line.startswith(("multichip serve", "multichip train", "multichip command",
+                                "bench_train on one card", "card ")):
+                print(line[:600], flush=True)
+        if res.returncode != 0:
+            raise AssertionError(f"python -m facerec_torch.multichip exited {res.returncode}:\n"
+                                 f"{res.stdout[-3000:]}\n{res.stderr[-6000:]}")
+        summary = json.loads(out.read_text())
+    print("multichip: " + json.dumps({
+        "phase_s": time.perf_counter() - t0,
+        "faces_per_sec": {k: summary[k]["aggregate_faces_per_sec"] for k in ("4x1", "1x4", "2x2")},
+        "train_images_per_sec": summary["train"]["images_per_sec"],
+        "train_scaling": summary["train"]["scaling"], "card": card}), flush=True)
+    return summary["launches"], summary["held"]
 
 
 def main() -> int:
@@ -3404,6 +3429,10 @@ def main() -> int:
     held.update(mesh_held)
     torch.cuda.empty_cache()
     print(f"mesh: phase {mesh_stats['phase_s']:.1f} s; launches {mesh_launches}", flush=True)
+    four = multichip(card)
+    if four is not None:
+        launches.update(four[0])
+        held.update(four[1])
     t0 = time.perf_counter()
     launches["fold"] = fold(pipes, frames, card)[1]
     del pipes["serve_facenet"]

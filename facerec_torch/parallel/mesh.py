@@ -54,24 +54,40 @@ def initialize_distributed(
     coordinator it does nothing and returns False (one process).
     ``FACEREC_COORDINATOR=auto`` defers to ``env://``, the variables that
     ``torchrun`` sets; ``host:port`` becomes ``tcp://host:port``. The
-    backend is ``backend``, else ``default_backend(device)``. Returns True
-    once the process group is up."""
+    backend is ``backend``, else ``default_backend(device)``. With NCCL on a
+    machine with cards, the rank's card (``cuda:{LOCAL_RANK}``, else the
+    rank's) becomes the current one and is bound to the group
+    (``device_id``), so that NCCL creates its communicators now, and those
+    of ``build_mesh``'s sub-groups when they are made, never first inside a
+    CUDA graph capture. Returns True once the process group is up."""
     addr = coordinator_address or os.environ.get("FACEREC_COORDINATOR")
     if not addr:
         return False
     kwargs: dict[str, Any] = {"backend": backend or default_backend(device)}
+    p = process_id if process_id is not None else os.environ.get("FACEREC_PROCESS_ID")
     if addr == "auto":
         kwargs["init_method"] = "env://"
+        p = os.environ.get("RANK")
     else:
         kwargs["init_method"] = addr if "://" in addr else f"tcp://{addr}"
         n = num_processes if num_processes is not None else os.environ.get("FACEREC_NUM_PROCESSES")
-        p = process_id if process_id is not None else os.environ.get("FACEREC_PROCESS_ID")
         if n is not None:
             kwargs["world_size"] = int(n)
         if p is not None:
             kwargs["rank"] = int(p)
+    if kwargs["backend"] == "nccl" and torch.cuda.is_available():
+        card = _local_card(int(p or 0))
+        torch.cuda.set_device(card)
+        kwargs["device_id"] = card
     dist.init_process_group(**kwargs)
     return True
+
+
+def _local_card(rank: int) -> torch.device:
+    """``cuda:{LOCAL_RANK % device_count}``, the rank standing in for
+    ``LOCAL_RANK`` where no launcher set it."""
+    local = int(os.environ.get("LOCAL_RANK", rank))
+    return torch.device("cuda", local % torch.cuda.device_count())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -130,8 +146,7 @@ def _device(device, rank: int, world: int) -> torch.device:
     no launcher set ``LOCAL_RANK``), or the device asked for."""
     dev = resolve_device(device)
     if dev.type == "cuda" and dev.index is None and world > 1:
-        local = int(os.environ.get("LOCAL_RANK", rank))
-        dev = torch.device("cuda", local % torch.cuda.device_count())
+        dev = _local_card(rank)
     return dev
 
 
@@ -176,6 +191,34 @@ def build_mesh(config: MeshConfig = MeshConfig(), world_size: int | None = None,
 @functools.lru_cache(maxsize=1)
 def default_mesh() -> Mesh:
     return build_mesh()
+
+
+def capturable(mesh: Mesh | None) -> bool:
+    """Whether a step over ``mesh`` can run as a captured CUDA graph: with
+    no mesh or one rank, or where every group of more than one rank is
+    NCCL's (its collectives are kernels a graph records). Gloo's are host
+    calls, so a step over a gloo group, or over a layout-only mesh, stays
+    eager. Every rank of a mesh decides alike, so all capture or none."""
+    if mesh is None or mesh.world_size == 1:
+        return True
+    groups = [mesh.groups[a] for a in (mesh.data_axis, mesh.model_axis) if mesh.shape[a] > 1]
+    return all(g is not None and dist.get_backend(g) == "nccl" for g in groups)
+
+
+def warm_collectives(mesh: Mesh | None) -> None:
+    """One all-reduce on each group of more than one rank, then a wait: NCCL
+    sets a group's communicator up at its first collective, which must not
+    be inside a capture. Every rank of the mesh calls it at the same point."""
+    if mesh is None or mesh.world_size == 1:
+        return
+    from facerec_torch.parallel.collectives import all_reduce_
+
+    for axis in (mesh.data_axis, mesh.model_axis):
+        group = mesh.group(axis)
+        if group is not None:
+            all_reduce_(torch.zeros(1, device=mesh.device), group)
+    if mesh.device.type == "cuda":
+        torch.cuda.synchronize(mesh.device)
 
 
 def _rows(n: int, parts: int, index: int, what: str) -> slice:

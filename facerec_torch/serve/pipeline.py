@@ -8,9 +8,9 @@ embedder and the gallery top-k kernel over a fixed-size frame batch; each
 frame yields up to ``max_faces`` masked slots. ``step`` is the eager body,
 the counterpart of JAX's ``_step_raw``: a sequence of launches. Every shape
 in it is static and no op in it waits on the host (the NMS fixed points run
-to convergence in their own kernel), so on a card without a mesh the
-pipeline runs it as one captured program, the counterpart of the jitted
-step: ``run_step``, ``packed_step``, ``process``, ``dispatch_demo``,
+to convergence in their own kernel), so on a card (with a mesh: see
+below) the pipeline runs it as one captured program, the counterpart of
+the jitted step: ``run_step``, ``packed_step``, ``process``, ``dispatch_demo``,
 ``identify``, ``benchmark`` and ``benchmark_transfer`` replay a
 ``torch.cuda.CUDAGraph`` of the step. The graph is captured at the first
 call for each frame shape and dtype (as jit traces once per shape), after
@@ -39,10 +39,15 @@ runs the top-k kernel on its own rows with its own valid count, computed
 on the device from the global count (no host read), and the shards'
 winners are merged exactly (``global_topk_merge``); an index is ``shard *
 R + local``. ``process``, ``identify`` and the benchmarks answer for this
-rank's frames: rows ``[d B / dp, (d + 1) B / dp)`` of the batch. With a mesh
-the step stays eager: gloo's collectives cannot be captured, and capture
-over NCCL across cards waits for a machine that has them. It still runs the
-NMS kernel, so its dispatch does not wait on detection either.
+rank's frames: rows ``[d B / dp, (d + 1) B / dp)`` of the batch. Where
+every group of the mesh is NCCL's (``parallel.mesh.capturable``: one rank
+per card) the mesh step is captured and replayed as the step without a mesh
+is, the merge's all-gather a node of the graph: every rank warms its
+groups' collectives (``warm_collectives``) and runs the warm-ups before it
+captures, and every rank calls the same entry points in the same order, so
+all ranks capture, and then replay, together. Over gloo (ranks that share a
+card) the step stays eager: gloo's collectives are host calls, which a
+graph cannot record.
 """
 
 from __future__ import annotations
@@ -62,7 +67,7 @@ from facerec_torch.ops.gallery import cosine_to_euclidean, gallery_topk
 from facerec_torch.ops.image import align_and_crop_batched, bbox_with_margin
 from facerec_torch.ops.warp_fast import align_and_crop_fast_batched
 from facerec_torch.parallel.collectives import global_topk_merge
-from facerec_torch.parallel.mesh import Mesh, batch_sharding
+from facerec_torch.parallel.mesh import Mesh, batch_sharding, capturable, warm_collectives
 from facerec_torch.serve.gallery import GalleryStore
 
 DEFAULT_LANDMARKS = [[40.0, 60.0], [120.0, 60.0], [80.0, 90.0], [50.0, 120.0], [110.0, 120.0]]
@@ -216,19 +221,20 @@ class FacePipeline:
     def packed_step(self, frames: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """The step with its result packed (``pack``) into one [B, F, 19] f32
         tensor, and the embeddings [B, F, D], which stay on the device.
-        Replayed from its own CUDA graph on a card without a mesh."""
+        Replayed from its own CUDA graph on a card (with a mesh: where it is
+        ``capturable``)."""
         return self._run("packed", frames)
 
     def run_step(self, frames: torch.Tensor) -> PipelineResult:
         """``step`` on frames on the pipeline's device, replayed from its
-        CUDA graph on a card without a mesh (eager otherwise); the result is
-        in buffers of its own, and the call returns before the card has
-        finished it."""
+        CUDA graph on a card (with a mesh: where it is ``capturable``; eager
+        otherwise); the result is in buffers of its own, and the call
+        returns before the card has finished it."""
         return self._run("step", frames)
 
     def _run(self, kind: str, frames: torch.Tensor):
         body = self.step if kind == "step" else self._packed
-        if self.device.type != "cuda" or self.mesh is not None:
+        if self.device.type != "cuda" or not capturable(self.mesh):
             return body(frames)
         g = self.gallery
         inputs = (self.detector, self.embedder, g.embeddings, g.count_device)
@@ -256,6 +262,7 @@ class FacePipeline:
         fails; the launch counts are left as the warm-up made them, since a
         capture launches nothing."""
         dev = frames.device
+        warm_collectives(self.mesh)
         with torch.cuda.device(dev):
             static = frames.clone()
             side = torch.cuda.Stream(dev)
@@ -279,7 +286,7 @@ class FacePipeline:
     def dispatch_demo(self, frames: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:
         """Upload and enqueue the packed step; returns the device tensors
         (packed, embeddings) without waiting for the card to finish them
-        (on a card without a mesh, a replay of the captured packed step)."""
+        (on a card, a replay of the captured packed step)."""
         return self.packed_step(self.upload(frames))
 
     def process_demo(self, frames: np.ndarray) -> tuple[np.ndarray, torch.Tensor]:
@@ -360,8 +367,8 @@ class FacePipeline:
     def benchmark(self, frames: np.ndarray, iters: int = 20, warmup: int = 2
                   ) -> dict[str, float]:
         """Steady-state throughput of the step (``run_step``: the captured
-        graph without a mesh) on device-resident frames, timed with CUDA
-        events after ``warmup`` steps. Runs only on a card."""
+        graph) on device-resident frames, timed with CUDA events after
+        ``warmup`` steps. Runs only on a card."""
         self._check_card()
         x = self.upload(frames)
         return self._timed(lambda: self.run_step(x), x.shape[0], iters, warmup)

@@ -20,8 +20,9 @@ autocast with f32 parameters; the margin logits and the loss stay f32.
 The train step's parts are named ranges (``train_step.forward``,
 ``.backward``, ``.grads``, ``.optimizer``) that torch.profiler reports.
 
-On a card with one rank (no mesh, or a mesh of world size 1), the train
-step runs as one captured program, the counterpart of JAX's jitted step:
+On a card, the train step runs as one captured program, the counterpart
+of JAX's jitted step (with a mesh of several ranks, where every group is
+NCCL's: ``parallel.mesh.capturable``):
 ``make_train_step`` returns a ``TrainStep`` that replays a
 ``torch.cuda.CUDAGraph`` of the eager body. The graph is captured at the
 first call for each batch shape and dtype, after two eager warm-up runs on
@@ -33,8 +34,15 @@ and copies the metrics out, all in stream order. The graph reads and
 writes the parameters, BatchNorm statistics, optimizer moments, step
 count, hyperparameters and epoch in place; a new state, model or
 optimizer object, or parameters moved to new storage, captures anew.
-``TrainStep.eager`` runs the body itself, as the CPU and a mesh of several
-ranks do (gloo's collectives cannot be captured).
+``TrainStep.eager`` runs the body itself, as the CPU and a gloo mesh do
+(gloo's collectives are host calls, which a graph cannot record). Over an
+NCCL mesh the graph holds the step's collectives: the loss's global count,
+the sync BatchNorm's sums forward and backward (autograd runs the backward
+ones on its own thread, which the capture's ``thread_local`` mode admits),
+and the gradient and metric sums. Every rank warms its groups
+(``warm_collectives``) and the body before it captures, at its first call
+for a batch shape, and all ranks call the step together, so they capture,
+and then replay, together.
 
 With a mesh of more than one data rank the batch is this rank's slice of
 the global batch, and the steps compute what one process computes on the
@@ -56,7 +64,7 @@ from torch.profiler import record_function
 from facerec_torch.models import get_criterion
 from facerec_torch.models.losses import pairwise_distance
 from facerec_torch.parallel.collectives import psum
-from facerec_torch.parallel.mesh import Mesh, data_parallel
+from facerec_torch.parallel.mesh import Mesh, capturable, data_parallel, warm_collectives
 from facerec_torch.train.state import TrainState, global_norm
 
 SIAMESE_THRESHOLD = 0.5  # distance below which a pair counts as the same person
@@ -134,8 +142,8 @@ class _Captured(NamedTuple):
 
 class TrainStep:
     """``step(state, batch) -> metrics``: one train step that advances
-    ``state`` in place; on a card with one rank, a replay of its CUDA graph
-    (module docstring)."""
+    ``state`` in place; on a card, a replay of its CUDA graph where the
+    mesh is ``capturable`` (module docstring)."""
 
     def __init__(self, model_type: str, compute_dtype: str = "float32",
                  mesh: Mesh | None = None):
@@ -143,7 +151,8 @@ class TrainStep:
         self.compute_dtype = compute_dtype
         self._loss_fn = get_criterion(model_type)
         self._sharded = _data_mesh(mesh)
-        self._capturable = mesh is None or mesh.world_size == 1
+        self._mesh = mesh
+        self._capturable = capturable(mesh)
         self._graphs: dict[tuple, _Captured] = {}
         self._graph_inputs: tuple | None = None  # what the graphs read in place
         self._pool = None  # the graphs' shared memory pool
@@ -184,6 +193,7 @@ class TrainStep:
         ``batch`` into the step's pool, with the state's generator
         registered. Raises if the capture fails."""
         dev = state.device
+        warm_collectives(self._mesh)
         with torch.cuda.device(dev):
             static = {k: v.clone() for k, v in batch.items()}
             live = _state_tensors(state)
@@ -259,7 +269,8 @@ def _count(outputs, batch: dict) -> torch.Tensor:
     if mask is not None:
         return mask.float().sum()
     first = outputs[0] if isinstance(outputs, tuple) else outputs
-    return torch.tensor(float(first.shape[0]), device=first.device)
+    # a fill, not a copy from the host: a capture admits no such copy
+    return torch.full((), float(first.shape[0]), device=first.device)
 
 
 def make_eval_step(model_type: str, compute_dtype: str = "float32",

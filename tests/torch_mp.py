@@ -293,3 +293,16 @@ def evaluate(rank: int, world: int, root: str, ckroot: str, outroot: str,
     return {k: v for k, v in res.items() if k not in ("avg_inference_time_ms",
                                                      "throughput_imgs_per_sec",
                                                      "throughput_pairs_per_sec")}
+
+
+def dryrun(rank: int, world: int, model_parallel: int, init: dict) -> dict:
+    """``multichip.dryrun_multichip`` as this rank of a (world / mp, mp)
+    gloo mesh, from ``init``'s weights with the ArcFace dropout off; also
+    whether the mesh's steps would be captured on a card."""
+    from facerec_torch import multichip
+    from facerec_torch.parallel.mesh import capturable
+
+    out = multichip.dryrun_multichip(world, model_parallel=model_parallel, device="cpu",
+                                     init=init, dropout_rate=0.0)
+    out["capturable"] = capturable(_mesh(world // model_parallel, model_parallel))
+    return out
