@@ -5,8 +5,9 @@
 Phases, each of which raises (and so exits nonzero) on failure:
 
   1. build    every CUDA kernel of the serve step from ``facerec_torch/csrc``
-              (K1, K2 and the NMS fixed point)
-              (one ``nvcc`` per source, all at once), and the host JPEG loader
+              (K1, K2 and the NMS kernel, which builds its suppression
+              bits from the boxes: ``nms_suppress``) (one ``nvcc`` per
+              source, all at once), and the host JPEG loader
               (``csrc/loader.cpp``) with ``g++``; a loader that does not build
               prints the compiler's error and leaves the trainer on PIL;
   2. K1       the gallery top-k kernel against its plain PyTorch version fed
@@ -28,6 +29,18 @@ Phases, each of which raises (and so exits nonzero) on failure:
               rad about off-centre centres (lines whose fine base rounds up
               to 8), angles beyond the clamp, centres at and beyond the
               0.1 x P cap, E == P, 128 -> 96, N = 1 and N = 0 (no launch);
+     batchnorm  the data-parallel BatchNorm's native function
+              (``models.resnet.global_batch_norm``: the fused kernels of
+              ``nn.SyncBatchNorm``) on a one-rank data axis against its
+              plain version (``global_batch_norm_plain``) at every
+              BatchNorm input of ``bench_train``'s ArcFace at 256 images of
+              160 px, f32 and bf16: output, input, weight and bias gradients,
+              batch mean and variance at the ``BN_*`` bars, each side's
+              gradients against f64 printed beside; then the f64
+              isolation of the data-parallel step's first-step gap
+              (``batchnorm_isolation``: one batch's ArcFace gradients
+              through the one-process BatchNorm, the plain and the native
+              global ones, each against an f64 copy of the model);
   4. serve    the port's serve step at ``bench.py``'s configuration (48 frames
               of 480 x 640 with 8 rendered faces each, MTCNN with the
               committed detector weights in bf16, a full-width ResNet-18
@@ -39,10 +52,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
               kernel names on one replay must say the same), at least 0.95 x
               384 faces found at p >= 0.6, and every field ``torch.equal``
               to the eager ``step`` on the same frames; the NMS kernel
-              bit for bit against its plain loop on each of its five calls'
-              own inputs (every serve path, the demo and the mesh ranks
-              too), the rounds each took, and its ms, device ms and bound on
-              each; ``dispatch_demo`` on the 48 frames must return before an
+              bit for bit (keep and rounds) against its plain version
+              (overlap matrix, score order, fixed point) on each of its five
+              calls' own boxes, scores and validity (every serve path, the
+              demo and the mesh ranks too), the rounds each took, and its
+              ms, device ms and bound on each; ``dispatch_demo`` on the 48
+              frames must return before an
               event recorded right after it is done (host ms beside device
               ms); the embed stage alone, eager against one graph (serve and
               serve_facenet); then the same step on a small input, on the
@@ -226,8 +241,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
               time, library call's time, bound from this run's inputs,
               launches, error; K1 at three gallery sizes; K2 at forced
               tilings, each bit for bit; the NMS kernel at each of the serve
-              step's five calls, with the rounds per path), the card's name
-              and power limit, and the result line.
+              step's five calls, with the rounds per path and the device ms
+              of the whole ``nms`` call around it), the card's name and
+              power limit, and the result line.
 
 Exits nonzero, printing no result, when no CUDA card is present or when run
 outside a checkout of the repository.
@@ -301,8 +317,27 @@ DET_AGREE_STEPS = 3
 DET_RTOL = 1e-4  # train_net on the card against the CPU, f32
 TRAINED_CHECKPOINT = "arcface_synth"  # the committed orbax tree, under outputs/checkpoints
 PATH_EMBEDDERS = {"serve_facenet": "facenet", "serve_trained": "trained"}  # else "arcface"
+# the data-parallel BatchNorm: every BatchNorm input of bench_train's ArcFace
+# at 160 px and 256 images a rank (the trunk's channels_last maps, the head's
+# [N, 512]); the native global function against its plain version on them,
+# the bars by dtype: f32 output within BN_Y_RTOL of its largest value,
+# gradients and statistics within the relative L2 given; bf16 output within
+# that and one bf16 ulp elementwise (both round an f32 value to bf16), its
+# input gradient (bf16) within BN_BF16_DX_L2
+BN_SHAPES = ((256, 64, 80, 80), (256, 64, 40, 40), (256, 128, 20, 20), (256, 256, 10, 10),
+             (256, 512, 5, 5), (256, 512))
+BN_Y_RTOL = 1e-5
+BN_GRAD_L2 = 1e-4
+BN_STATS_RTOL = 1e-5
+BN_BF16_DX_L2 = 1e-2
+BN_ISOLATION_BATCH = 256
 # the five NMS calls of a serve step, in call order (detect/mtcnn.py)
 NMS_SITES = ("per_scale", "cross_scale", "rnet", "large_face", "final")
+# f32 operations of one pair's overlap and its test against the threshold, in
+# overlap_matrix's order: the intersection 9 (4 max/min, 2 subtractions, 2
+# clamps, a product), then union 5 (add, subtract, clamp, divide, compare),
+# min 4 (min, clamp, divide, compare), dupmin 11
+NMS_PAIR_OPS = {"union": 14, "min": 13, "dupmin": 20}
 K1_TRAINED_TOL = 6.0e-7  # K1 against its plain version on serve_trained's inputs
 ID_CLASSES, ID_RENDERS, ID_SIZE = 16, 24, 160  # the arcface_synth dataset's shape (synth16)
 # No seed 0-9 of the synthetic generator rebuilds the dataset the checkpoint
@@ -648,9 +683,9 @@ def check_k1(dev):
     return q, {SERVE_ROWS: g_serve, MID_ROWS: g_big, BIG_ROWS: g_huge}, serve_err
 
 
-def _kernel_device_ms(fn, names: tuple[str, ...], iters: int = 20) -> float:
-    """Device time per call of the CUDA kernels whose names contain one of
-    ``names``, from torch.profiler over ``iters`` calls."""
+def _kernels_per_call(fn, iters: int = 20) -> list:
+    """(name, device ms, launches) per call of each CUDA kernel that
+    ``fn`` launches, from torch.profiler over ``iters`` calls."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -660,8 +695,15 @@ def _kernel_device_ms(fn, names: tuple[str, ...], iters: int = 20) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(e.self_device_time_total for e in prof.key_averages()
-               if any(n in e.key for n in names)) / iters / 1e3
+    return [(e.key, e.self_device_time_total / iters / 1e3, e.count / iters)
+            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+
+
+def _kernel_device_ms(fn, names: tuple[str, ...], iters: int = 20) -> float:
+    """Device time per call of the CUDA kernels whose names contain one of
+    ``names``, from torch.profiler over ``iters`` calls."""
+    return sum(ms for key, ms, _ in _kernels_per_call(fn, iters)
+               if any(n in key for n in names))
 
 
 def _host_ms(fn, iters: int = 50) -> float:
@@ -851,6 +893,184 @@ def check_k2(dev):
     return serve_in, worst
 
 
+def batchnorm_case(dev, shape, dtype, seed: int = 0) -> dict:
+    """The native global BatchNorm (``models.resnet.global_batch_norm`` on a
+    one-rank data axis: its kernels, no collective) against its plain
+    version on the same inputs: output, input gradient, weight and bias
+    gradients, batch mean and biased variance, at the ``BN_*`` bars.
+    Returns the errors and ``ok``."""
+    import torch
+
+    from facerec_torch.config import MeshConfig
+    from facerec_torch.models.resnet import global_batch_norm, global_batch_norm_plain
+    from facerec_torch.parallel.mesh import build_mesh
+
+    mesh = build_mesh(MeshConfig(data_parallel=1), world_size=1, rank=0, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[1]
+    x = torch.randn(shape, generator=gen, device=dev) * 2.0 + 0.5
+    if x.ndim == 4:
+        x = x.contiguous(memory_format=torch.channels_last)
+    x = x.to(dtype)
+    w = torch.rand(c, generator=gen, device=dev) + 0.5
+    b = torch.rand(c, generator=gen, device=dev) - 0.5
+    dy = torch.randn(shape, generator=gen, device=dev).to(dtype)
+    outs = []
+    for fn in (global_batch_norm, global_batch_norm_plain):
+        xs, ws, bs = (t.detach().clone().requires_grad_(True) for t in (x, w, b))
+        y, mean, var = fn(xs, ws, bs, 1e-5, mesh)
+        y.backward(dy)
+        outs.append([y.detach(), xs.grad, ws.grad, bs.grad, mean.detach(), var.detach()])
+    (y1, dx1, dw1, db1, m1, v1), (y0, dx0, dw0, db0, m0, v0) = outs
+
+    def l2(a, r):
+        return ((a.double() - r.double()).norm() / r.double().norm()).item()
+
+    # both against f64 on the same (rounded) inputs, printed beside the bars
+    x64, w64, b64 = (t.detach().double().requires_grad_(True) for t in (x, w, b))
+    dims = [0, *range(2, x.ndim)]
+    view = [1, -1] + [1] * (x.ndim - 2)
+    mu = x64.mean(dims, keepdim=True)
+    y64 = (x64 - mu) / torch.sqrt(((x64 - mu) ** 2).mean(dims, keepdim=True) + 1e-5) \
+        * w64.view(view) + b64.view(view)
+    y64.backward(dy.double())
+    truth = {"dx": x64.grad, "dw": w64.grad, "db": b64.grad}
+    against_f64 = {side: {k: l2(g, truth[k]) for k, g in zip(("dx", "dw", "db"), got)}
+                   for side, got in (("native", (dx1, dw1, db1)), ("plain", (dx0, dw0, db0)))}
+    del x64, w64, b64, y64, truth
+
+    err = {"shape": list(shape), "dtype": str(dtype).split(".")[-1],
+           "y_max_abs": (y1.float() - y0.float()).abs().max().item(),
+           "y_max_abs_ref": y0.float().abs().max().item(),
+           "dx_l2": l2(dx1, dx0), "dw_l2": l2(dw1, dw0), "db_l2": l2(db1, db0),
+           "mean_rel": ((m1 - m0).abs().max() / m0.abs().max()).item(),
+           "var_rel": ((v1 - v0).abs().max() / v0.abs().max()).item(),
+           "dtypes": [str(t.dtype).split(".")[-1] for t in (y1, dx1, dw1, db1)],
+           "against_f64_l2": against_f64}
+    ok = (y1.dtype == y0.dtype == dtype and dx1.dtype == dx0.dtype
+          and err["dw_l2"] <= BN_GRAD_L2 and err["db_l2"] <= BN_GRAD_L2
+          and err["mean_rel"] <= BN_STATS_RTOL and err["var_rel"] <= BN_STATS_RTOL)
+    if dtype == torch.float32:
+        ok = ok and err["y_max_abs"] <= BN_Y_RTOL * err["y_max_abs_ref"] and \
+            err["dx_l2"] <= BN_GRAD_L2
+    else:  # the f32 bar, plus one ulp of the bf16 value (2^-7 of its magnitude)
+        ulp = torch.exp2(torch.floor(torch.log2(y0.float().abs().clamp_min(1e-30))) - 7)
+        bar = ulp + BN_Y_RTOL * err["y_max_abs_ref"]
+        err["y_beyond_one_ulp"] = int(((y1.float() - y0.float()).abs() > bar).sum())
+        ok = ok and err["y_beyond_one_ulp"] == 0 and err["dx_l2"] <= BN_BF16_DX_L2
+    err["ok"] = bool(ok)
+    return err
+
+
+def _grads(model, batch, dev, generator_seed: int = 0) -> list:
+    """The ArcFace loss's gradient of every parameter of ``model`` (train
+    mode, one step's forward at epoch 0, dropout from a seeded generator,
+    the same mask for every dtype)."""
+    import torch
+
+    from facerec_torch.models import get_criterion
+    from facerec_torch.train.steps import _forward
+
+    model.train()
+    gen = torch.Generator(device=dev).manual_seed(generator_seed)
+    params = [p for p in model.parameters()]
+    loss = get_criterion("arcface")(_forward(model, "arcface", batch, 0.0, gen), batch)
+    return [g.detach() for g in torch.autograd.grad(loss, params)]
+
+
+def batchnorm_isolation(dev) -> dict:
+    """Where the data-parallel step's first-step gradient gap comes from, on
+    one card in f32: one batch of ``bench_train``'s ArcFace (256 images of
+    160 px from ``make_batches``, the state from seed 0) through (a) the
+    one-process BatchNorm (``torch.native_batch_norm``), (b) the plain
+    global function ``global_batch_norm_plain`` on a one-rank data mesh,
+    (d) the native global function on the same mesh, and (c) an f64 copy of
+    the model as the truth (f64 throughout: the model and its loss compute
+    in ``at_least_f32`` of their inputs). For each of (a), (b), (d) against (c): the relative
+    L2 of the whole gradient and of each convolution's weight gradient, and
+    the elements whose sign differs from f64. Deterministic cuDNN."""
+    import copy
+
+    import torch
+
+    from facerec_torch.bench_train import NUM_CLASSES, make_batches
+    from facerec_torch.config import MeshConfig, TrainConfig
+    from facerec_torch.models import get_model, resnet
+    from facerec_torch.parallel.mesh import build_mesh
+    from facerec_torch.train.state import create_train_state
+
+    cfg = TrainConfig(model_type="arcface", batch_size=BN_ISOLATION_BATCH,
+                      num_classes=NUM_CLASSES, seed=0)
+    model = create_train_state(get_model("arcface", num_classes=NUM_CLASSES), cfg, "arcface",
+                               dev).model
+    batch = make_batches("arcface", BN_ISOLATION_BATCH, 160, 1, dev)[0]
+    names = [n for n, _ in model.named_parameters()]
+    mesh = build_mesh(MeshConfig(data_parallel=1), world_size=1, rank=0, device=dev)
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    real_mesh, real_global = resnet.sharded_data_mesh, resnet.global_batch_norm
+    grads = {}
+    try:
+        grads["a_one_process"] = _grads(copy.deepcopy(model), batch, dev)
+        resnet.sharded_data_mesh = lambda: mesh
+        resnet.global_batch_norm = resnet.global_batch_norm_plain
+        grads["b_plain_global"] = _grads(copy.deepcopy(model), batch, dev)
+        resnet.global_batch_norm = real_global
+        grads["d_native_global"] = _grads(copy.deepcopy(model), batch, dev)
+        resnet.sharded_data_mesh = real_mesh
+        batch64 = {k: v.double() if v.is_floating_point() else v for k, v in batch.items()}
+        grads["c_f64"] = _grads(copy.deepcopy(model).double(), batch64, dev)
+    finally:
+        resnet.sharded_data_mesh, resnet.global_batch_norm = real_mesh, real_global
+        torch.backends.cudnn.deterministic = deterministic
+    truth = [g for g in grads["c_f64"]]
+    flat_truth = torch.cat([g.reshape(-1) for g in truth])
+    convs = [i for i, n in enumerate(names) if truth[i].ndim == 4]
+    out = {"batch": BN_ISOLATION_BATCH, "params": len(names), "convolutions": len(convs)}
+    for key in ("a_one_process", "b_plain_global", "d_native_global"):
+        g = [t.double() for t in grads[key]]
+        flat = torch.cat([t.reshape(-1) for t in g])
+        per_conv = {names[i]: ((g[i] - truth[i]).norm() / truth[i].norm()).item() for i in convs}
+        out[key] = {"grad_l2": ((flat - flat_truth).norm() / flat_truth.norm()).item(),
+                    "conv_l2_max": max(per_conv.values()),
+                    "conv_l2_median": sorted(per_conv.values())[len(convs) // 2],
+                    "sign_differs": int((torch.sign(flat) != torch.sign(flat_truth)).sum()),
+                    "conv_l2": per_conv}
+    a, b = (torch.cat([t.reshape(-1).double() for t in grads[k]])
+            for k in ("a_one_process", "b_plain_global"))
+    out["a_against_b_l2"] = ((a - b).norm() / b.norm()).item()
+    out["elements"] = int(flat_truth.numel())
+    return out
+
+
+def batchnorm(dev, card: str) -> dict:
+    """The data-parallel BatchNorm on the card: the native global function
+    against its plain version at every BatchNorm input of ``bench_train``'s
+    ArcFace, f32 and bf16 (``batchnorm_case``), then the f64 isolation of
+    the first-step gap (``batchnorm_isolation``). Raises where a case misses
+    its bars."""
+    import torch
+
+    t0 = time.perf_counter()
+    cases = [batchnorm_case(dev, shape, dtype, seed=i)
+             for i, shape in enumerate(BN_SHAPES) for dtype in (torch.float32, torch.bfloat16)]
+    for case in cases:
+        print("batchnorm native against plain: " + json.dumps(case), flush=True)
+    torch.cuda.empty_cache()
+    iso = batchnorm_isolation(dev)
+    torch.cuda.empty_cache()
+    print("batchnorm isolation (f32 against f64): " + json.dumps(
+        {k: ({kk: vv for kk, vv in v.items() if kk != "conv_l2"} if isinstance(v, dict) else v)
+         for k, v in iso.items()} | {"card": card}), flush=True)
+    print("batchnorm isolation, each convolution's weight gradient against f64: " + json.dumps(
+        {k: iso[k]["conv_l2"] for k in ("a_one_process", "b_plain_global", "d_native_global")}),
+        flush=True)
+    bad = [c for c in cases if not c["ok"]]
+    if bad:
+        raise AssertionError(f"the native global BatchNorm misses its bars: {bad}")
+    return {"cases": cases, "isolation": iso, "phase_s": time.perf_counter() - t0}
+
+
 def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg, precise_align=False,
                    embedder: str = "arcface", mesh=None):
     """bench.py's pipeline: the committed detector, and a full-width embedder
@@ -917,82 +1137,140 @@ def small_input_agrees(dev, embedder: str = "arcface") -> None:
 
 def _zero_launches() -> None:
     from facerec_torch.ops.gallery import gallery_topk
-    from facerec_torch.ops.nms import nms_fixed_point
+    from facerec_torch.ops.nms import nms_suppress
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
     gallery_topk.launches = 0
     rotate_patches_kernel.launches = 0
-    nms_fixed_point.launches = 0
+    nms_suppress.launches = 0
 
 
 def _launches() -> dict:
     from facerec_torch.ops.gallery import gallery_topk
-    from facerec_torch.ops.nms import nms_fixed_point
+    from facerec_torch.ops.nms import nms_suppress
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
     return {"gallery_topk": gallery_topk.launches, "shear_rotate": rotate_patches_kernel.launches,
-            "nms_fixed_point": nms_fixed_point.launches}
+            "nms_suppress": nms_suppress.launches}
 
 
 def _step_launches(precise: bool = False, steps: int = 1) -> dict:
     """The launches ``steps`` serve steps make: K1 once, K2 once (not on
     the precise path), the NMS kernel once for each of its five calls."""
     return {"gallery_topk": steps, "shear_rotate": 0 if precise else steps,
-            "nms_fixed_point": len(NMS_SITES) * steps}
+            "nms_suppress": len(NMS_SITES) * steps}
 
 
 def hold_nms(path: str, pipe, x) -> dict:
-    """The NMS kernel against its plain loop, bit for bit (keep and rounds),
-    on each of the five calls of the path's step, on the path's own inputs;
-    the rounds each call took (max and mean over its rows)."""
+    """The NMS kernel against its plain version, bit for bit (keep and
+    rounds), on each of the five calls of the path's step, on the path's own
+    inputs (boxes, masked scores, valid, threshold, mode); the rounds each
+    call took (max and mean over its rows)."""
     import torch
 
     from facerec_torch.multichip import record_nms
-    from facerec_torch.ops.nms import nms_fixed_point, nms_fixed_point_plain
+    from facerec_torch.ops.nms import nms_suppress, nms_suppress_plain
 
     calls = record_nms(pipe, x)
     if len(calls) != len(NMS_SITES):
         raise AssertionError(f"the {path} detect made {len(calls)} NMS calls, not "
                              f"{len(NMS_SITES)}")
     sites = {}
-    for site, (sup, keep0) in zip(NMS_SITES, calls):
-        keep, rounds = nms_fixed_point(sup, keep0)
-        ref, ref_rounds = nms_fixed_point_plain(sup, keep0)
-        sites[site] = {"rows": sup.shape[0], "boxes": sup.shape[1],
+    for site, args in zip(NMS_SITES, calls):
+        keep, rounds = nms_suppress(*args)
+        ref, ref_rounds = nms_suppress_plain(*args)
+        sites[site] = {"rows": keep.shape[0], "boxes": keep.shape[1], "mode": args[4],
                        "bit_exact": bool(torch.equal(keep, ref) and torch.equal(rounds, ref_rounds)),
                        "rounds_max": int(rounds.max().item()),
                        "rounds_mean": rounds.float().mean().item()}
     print(f"NMS {path}: " + json.dumps(sites), flush=True)
     if not all(v["bit_exact"] for v in sites.values()):
-        raise AssertionError(f"the NMS kernel disagrees with its plain loop on the {path} path")
+        raise AssertionError(f"the NMS kernel disagrees with its plain version on the {path} "
+                             "path")
     return sites
 
 
-def time_nms(calls) -> list[dict]:
-    """The NMS kernel on each call's inputs: CUDA-event ms over back-to-back
-    calls, its device ms (profiler) and host ms, the plain loop's ms, and
-    the bound: sup, keep0 and keep bytes (and the rounds) over 3.35 TB/s,
-    beside this run's word operations (an AND and an OR per word, row and
-    round) over the f32 CUDA-core rate."""
-    from facerec_torch.ops.nms import nms_fixed_point, nms_fixed_point_plain
+def nms_adversarial_rows():
+    """[4, 12] rows of pairs that sit on the edges of the test: in row 0 a
+    pair whose IoU is exactly 0.5 (inter 50 over union 100; min
+    overlap 1) and one whose min overlap is exactly 0.5 (inter 50 over
+    the smaller area 100; IoU 1/3; equal areas, so dupmin takes min), each
+    pair's scores tied; in row 1 zero-area boxes (a line, a point, a line
+    crossing a box, two equal lines) among tied scores; row 2 all invalid;
+    row 3 four equal boxes: an invalid one with the top score, then three
+    with equal scores (the lowest index of those survives). Threshold 0.5;
+    numpy arrays (boxes f32, scores f32, valid bool)."""
+    import numpy as np
 
+    n = 12
+    boxes = np.zeros((4, n, 4), np.float32)
+    boxes[0, :4] = [[0, 0, 10, 10], [0, 0, 10, 5], [20, 0, 30, 10], [25, 0, 35, 10]]
+    boxes[1, :5] = [[40, 40, 40, 50], [40, 40, 40, 50], [45, 45, 45, 45], [0, 5, 10, 5],
+                    [0, 0, 10, 10]]
+    boxes[2, :3] = [[0, 0, 10, 10], [1, 1, 11, 11], [2, 2, 12, 12]]
+    boxes[3, :4] = [[5, 5, 15, 15], [5, 5, 15, 15], [5, 5, 15, 15], [5, 5, 15, 15]]
+    r = np.arange(n, dtype=np.float32)
+    far = np.stack([100 + 20 * r, 0 * r + 100, 110 + 20 * r, 0 * r + 110], 1)
+    for row, used in ((0, 4), (1, 5), (2, 3), (3, 4)):
+        boxes[row, used:] = far[used:]
+    scores = np.full((4, n), 0.5, np.float32)
+    scores[:, 8:] = np.linspace(0.1, 0.4, 4, dtype=np.float32)
+    scores[3, 0] = 0.9
+    valid = np.ones((4, n), bool)
+    valid[2] = False
+    valid[3, 0] = False
+    return boxes, scores, valid
+
+
+def time_nms(pipe, x) -> list[dict]:
+    """The NMS kernel at each of the five calls of one eager detect of
+    ``x``: CUDA-event ms over back-to-back calls, its device ms (profiler)
+    and host ms, the plain version's ms (overlap matrix, score order and
+    fixed point as PyTorch ops), and the bound: the larger of the boxes,
+    scores and valid read and the keep and rounds written over 3.35 TB/s,
+    and N^2 overlaps a row of ``NMS_PAIR_OPS[mode]`` f32 operations over the
+    CUDA-core f32 rate. Beside it, the whole ``nms`` call at the same site
+    (the masked scores, the kernel, the top-k and gathers after it): its
+    device ms and kernels a call, from the profiler over 10 calls."""
+    import torch
+
+    from facerec_torch.detect import mtcnn
+    from facerec_torch.multichip import record_nms
+    from facerec_torch.ops.nms import nms_suppress, nms_suppress_plain
+
+    whole, real = [], mtcnn.nms
+
+    def recording(*args, **kwargs):
+        whole.append((tuple(a.clone() if isinstance(a, torch.Tensor) else a for a in args),
+                      kwargs))
+        return real(*args, **kwargs)
+
+    mtcnn.nms = recording
+    try:
+        calls = record_nms(pipe, x)
+    finally:
+        mtcnn.nms = real
+    if len(whole) != len(NMS_SITES):
+        raise AssertionError(f"the detect made {len(whole)} nms calls, not {len(NMS_SITES)}")
     rows = []
-    for site, (sup, keep0) in zip(NMS_SITES, calls):
-        m, n = keep0.shape
-        _, rounds = nms_fixed_point(sup, keep0)
-        words = -(-n // 32)
-        bound, by = _bound_ms(m * n * n + 2 * m * n + 4 * m,
-                              2.0 * n * words * rounds.sum().item())
+    for site, args, (call_args, call_kwargs) in zip(NMS_SITES, calls, whole):
+        m, n = args[1].shape
+        mode = args[4]
+        bound, by = _bound_ms(m * n * (16 + 4 + 1) + m * n + 4 * m,
+                              NMS_PAIR_OPS[mode] * m * n * n)
 
-        def fn(sup=sup, keep0=keep0):
-            return nms_fixed_point(sup, keep0)
+        def fn(args=args):
+            return nms_suppress(*args)
 
-        rows.append({"site": site, "rows": m, "boxes": n, "sup_bytes": m * n * n,
+        call = _kernels_per_call(lambda a=call_args, k=call_kwargs: real(*a, **k), iters=10)
+        rows.append({"site": site, "rows": m, "boxes": n, "mode": mode,
                      "ms": _time_ms(fn, iters=50), "device_ms": _kernel_device_ms(
-                         fn, ("nms_fixed_point",)), "host_ms": _host_ms(fn),
-                     "plain_ms": _time_ms(lambda sup=sup, keep0=keep0: nms_fixed_point_plain(
-                         sup, keep0), iters=5, warmup=1),
-                     "bound_ms": bound, "bound_by": by, "library_ms": None})
+                         fn, ("nms_suppress",)), "host_ms": _host_ms(fn),
+                     "plain_ms": _time_ms(lambda args=args: nms_suppress_plain(*args), iters=5,
+                                          warmup=1),
+                     "bound_ms": bound, "bound_by": by, "library_ms": None,
+                     "call_device_ms": sum(ms for _, ms, _ in call),
+                     "call_kernels": sum(c for _, _, c in call)})
         print("NMS time: " + json.dumps(rows[-1]), flush=True)
     return rows
 
@@ -1006,7 +1284,7 @@ def replay_launches(path: str, pipe, x, want: dict) -> dict:
     from torch.profiler import ProfilerActivity, profile
 
     names = {"gallery_topk": "topk_partial", "shear_rotate": "shear_rotate",
-             "nms_fixed_point": "nms_fixed_point"}
+             "nms_suppress": "nms_suppress"}
 
     def count(fn):
         fn()
@@ -1124,7 +1402,7 @@ def hold_path_kernels(path: str, pipe, x, r) -> dict:
     err = {"gallery_topk": _k1_case(path, q, pipe.gallery.embeddings, pipe.gallery.local_count,
                                     cfg.top_k, 2e-3)[0]}
     sites = hold_nms(path, pipe, x)
-    err["nms_fixed_point"] = 0.0  # hold_nms raised on any differing keep bit or round count
+    err["nms_suppress"] = 0.0  # hold_nms raised on any differing keep bit or round count
     err["nms_rounds"] = {k: [v["rounds_max"], v["rounds_mean"]] for k, v in sites.items()}
     if not pipe.precise_align:
         lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)
@@ -1233,9 +1511,7 @@ def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
     held = hold_path_kernels(path, pipe, x, r)
     extra["kernels_held"] = held
     if path == "serve":
-        from facerec_torch.multichip import record_nms
-
-        extra["nms_time"] = time_nms(record_nms(pipe, x))
+        extra["nms_time"] = time_nms(pipe, x)
         extra["dispatch_demo"] = dispatch_returns_early(pipe, frames)
     if path in ("serve", "serve_facenet"):
         extra["embed_alone"] = embed_captured(pipe, x)
@@ -2543,7 +2819,7 @@ def prep(dev, card: str) -> dict:
             and aug_err <= AUG_ATOL):
         raise AssertionError(f"the prep path on the card disagrees with the CPU: {agree}, "
                              f"augment {aug_err}")
-    if launches["gallery_topk"] or launches["shear_rotate"] or not launches["nms_fixed_point"]:
+    if launches["gallery_topk"] or launches["shear_rotate"] or not launches["nms_suppress"]:
         raise AssertionError(f"the prep path launched K1 or K2, or detected without the NMS "
                              f"kernel: {launches}")
     return stats
@@ -2643,7 +2919,7 @@ def detector(dev, card: str) -> dict:
            if max(v["loss_max_rel"], v["param_rel"]) > DET_RTOL}
     if bad:
         raise AssertionError(f"train_net on the card disagrees with the CPU: {bad}")
-    if launches["gallery_topk"] or launches["shear_rotate"] or not launches["nms_fixed_point"]:
+    if launches["gallery_topk"] or launches["shear_rotate"] or not launches["nms_suppress"]:
         raise AssertionError(f"the detector path launched K1 or K2, or detected without the "
                              f"NMS kernel: {launches}")
     return stats
@@ -2806,19 +3082,20 @@ def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time) -> li
          "bound_ms": k2_bound, "bound_by": k2_by, "library_ms": None,
          "patch_bytes_read": read, "patch_share_read": read / (n * p * p * c * 2),
          "tilings": k2_tilings(k2_in)},
-        {"name": "nms_fixed_point", "route": "cuda",
+        {"name": "nms_suppress", "route": "cuda",
          "source": "facerec_torch/csrc/nms_fixed_point.cu",
          "replaces": "facerec_tpu/ops/nms.py:115",
-         "launches": launches["serve"]["nms_fixed_point"],
-         "launches_by_path": {k: v["nms_fixed_point"] for k, v in launches.items()},
-         "max_abs_err": held["serve"]["nms_fixed_point"],
-         "max_abs_err_by_path": {k: v["nms_fixed_point"] for k, v in held.items()},
+         "launches": launches["serve"]["nms_suppress"],
+         "launches_by_path": {k: v["nms_suppress"] for k, v in launches.items()},
+         "max_abs_err": held["serve"]["nms_suppress"],
+         "max_abs_err_by_path": {k: v["nms_suppress"] for k, v in held.items()},
          "rounds_by_path": {k: v["nms_rounds"] for k, v in held.items()},
          "shape": f"{cross['rows']} rows x {cross['boxes']} boxes (the cross-scale call)",
          **{key: cross[key] for key in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
                                         "bound_by", "library_ms")},
          "per_step": {key: sum(r[key] for r in nms_time)
-                      for key in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms")},
+                      for key in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
+                                  "call_device_ms", "call_kernels")},
          "sites": nms_time},
     ]
 
@@ -3350,6 +3627,8 @@ def main() -> int:
     del galleries
     torch.cuda.empty_cache()
     k2_in, k2_err = check_k2(dev)
+    bn = batchnorm(dev, card)
+    print(f"batchnorm: phase {bn['phase_s']:.1f} s", flush=True)
 
     import numpy as np
 

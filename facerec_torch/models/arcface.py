@@ -20,7 +20,8 @@ import torch.nn as nn
 
 from facerec_torch import resolve_device
 from facerec_torch.models.resnet import BatchNorm, ResNet18
-from facerec_torch.ops.arcface import arc_margin_logits, cosine_logits, l2_normalize
+from facerec_torch.ops.arcface import (arc_margin_logits, at_least_f32, cosine_logits,
+                                       l2_normalize)
 from facerec_torch.parallel.mesh import sharded_data_mesh
 
 
@@ -77,7 +78,7 @@ class ArcFaceNet(nn.Module):
         x = self.bn(self.embedding(self.backbone.pooled(x_nhwc.to(dt))))
         if self.training:
             x = dropout(x, self.dropout_rate, generator)
-        return l2_normalize(x.float())
+        return l2_normalize(at_least_f32(x))
 
     def forward(self, x: torch.Tensor, labels: torch.Tensor | None = None,
                 epoch: torch.Tensor | float = 0.0,

@@ -1,7 +1,8 @@
 """Loss functions (counterpart of ``facerec_tpu/models/losses.py``).
 
 Every loss takes an optional ``mask`` ([B] in {0, 1}) so that the padded
-tail of the last batch contributes nothing. Losses are computed in f32.
+tail of the last batch contributes nothing. Losses are computed in f32
+(in f64 for f64 inputs).
 """
 
 from __future__ import annotations
@@ -9,7 +10,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from facerec_torch.ops.arcface import l2_normalize
+from facerec_torch.ops.arcface import at_least_f32, l2_normalize
 
 
 def _masked_mean(x: torch.Tensor, mask: torch.Tensor | None) -> torch.Tensor:
@@ -23,9 +24,9 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor, label_smoothing: f
                   mask: torch.Tensor | None = None) -> torch.Tensor:
     """Cross-entropy with label smoothing (0.1 for the classifiers, 0.05 for
     ArcFace)."""
-    logits = logits.float()
+    logits = at_least_f32(logits)
     num_classes = logits.shape[-1]
-    onehot = F.one_hot(labels.long(), num_classes).float()
+    onehot = F.one_hot(labels.long(), num_classes).to(logits.dtype)
     if label_smoothing > 0:
         onehot = onehot * (1.0 - label_smoothing) + label_smoothing / num_classes
     losses = -(onehot * F.log_softmax(logits, dim=-1)).sum(-1)

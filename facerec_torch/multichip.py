@@ -1,7 +1,7 @@
 """Several cards, one rank each (counterpart of the repository's root
 ``__graft_entry__.py``).
 
-    python -m facerec_torch.multichip [--timeout SECONDS]
+    python -m facerec_torch.multichip [--timeout SECONDS] [--out FILE]
 
 ``entry()`` is the single-card forward of the flagship model: the ArcFace
 embeddings of ``get_model("arcface", num_classes=18)`` under bf16 autocast
@@ -40,26 +40,30 @@ are stopped), and each rank runs, in one order:
     loss and grad_norm, and in the parameters after every step but the
     first. Adam's first step from zero moments moves each parameter by the
     learning rate times the sign of its gradient, so where a gradient
-    cancels to near 0 (BatchNorm's backward subtracts its mean) the
-    global-batch BatchNorm's rounding and the native kernel's can pick
-    either sign (the gradients differ by about 3e-3 in L2 while their norms
-    agree within 1e-5), so the first step's parameters and every step's
-    gradients are printed, not held. The bf16 steps' differences are
-    printed beside. Then the bf16 step's time;
+    cancels to near 0 (BatchNorm's backward subtracts its mean) any two f32
+    roundings of the step can pick either sign: on one card, one batch's
+    f32 gradient lies 3.9e-3 to 4.4e-3 in L2 from f64 through each of the
+    one-process, the plain global and the native global BatchNorm
+    (``chip_smoke.batchnorm_isolation``), so the first step's parameters
+    and every step's gradients are printed, not held. The same three steps
+    with the plain global BatchNorm (``plain_batch_norm``) are printed
+    beside, and the bf16 steps' differences. Then the bf16 step's time with the
+    native global BatchNorm and with its plain version, in turns;
   * the NCCL all-reduce of the gradient's own size, as bus GB/s.
 
 Then ``train_model`` over four ranks through the command line under
 ``torchrun`` (the ``arcface_synth`` flags, 2 epochs), its checkpoint loaded
 in one process, and ``evaluate_model`` over four ranks through the command
 line against one process's. ``bench_train`` on one card runs in the same
-call for the scaling. Nothing falls back: a layout without its cards
-raises, and so does any failed check, collective or capture. The last line
-of stdout is a JSON summary (``chip_smoke.py`` reads its launches).
+call for the scaling. Nothing falls back: a layout without its cards raises, and so does any
+failed check, collective or capture. The last line of stdout is a JSON
+summary (``chip_smoke.py`` reads its launches).
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import copy
 import json
 import os
@@ -100,7 +104,7 @@ TIMED_STEPS = 20
 POOL = 3  # distinct train batches
 RANK_TIMEOUT_S = 900
 KERNEL_NAMES = {"gallery_topk": "topk_partial", "shear_rotate": "shear_rotate",
-                "nms_fixed_point": "nms_fixed_point"}
+                "nms_suppress": "nms_suppress"}
 NMS_SITES = ("per_scale", "cross_scale", "rnet", "large_face", "final")  # the detect's calls
 # arcface_synth's configuration (outputs/checkpoints/arcface_synth) in the
 # command line's flags; the flags have no knob for its scheduler's 2 warm-up
@@ -327,22 +331,22 @@ def _rank_main(fn, rank: int, world: int, port: int, out: str, args) -> None:
 
 def zero_launches() -> None:
     from facerec_torch.ops.gallery import gallery_topk
-    from facerec_torch.ops.nms import nms_fixed_point
+    from facerec_torch.ops.nms import nms_suppress
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
-    gallery_topk.launches = rotate_patches_kernel.launches = nms_fixed_point.launches = 0
+    gallery_topk.launches = rotate_patches_kernel.launches = nms_suppress.launches = 0
 
 
 def launches() -> dict:
     from facerec_torch.ops.gallery import gallery_topk
-    from facerec_torch.ops.nms import nms_fixed_point
+    from facerec_torch.ops.nms import nms_suppress
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
     return {"gallery_topk": gallery_topk.launches, "shear_rotate": rotate_patches_kernel.launches,
-            "nms_fixed_point": nms_fixed_point.launches}
+            "nms_suppress": nms_suppress.launches}
 
 
-STEP_LAUNCHES = {"gallery_topk": 1, "shear_rotate": 1, "nms_fixed_point": len(NMS_SITES)}
+STEP_LAUNCHES = {"gallery_topk": 1, "shear_rotate": 1, "nms_suppress": len(NMS_SITES)}
 
 
 def profiled(fn, calls: int = 3) -> dict:
@@ -372,24 +376,24 @@ def profiled(fn, calls: int = 3) -> dict:
 
 
 def record_nms(pipe, x) -> list:
-    """The (sup, keep0) inputs of each NMS fixed point of one eager detect of
-    ``x`` by ``pipe``'s detector, in call order (``NMS_SITES``); the launch
-    counts stay as they were."""
+    """The inputs (boxes, s0, valid, threshold, mode) of each NMS kernel
+    call of one eager detect of ``x`` by ``pipe``'s detector, in call order
+    (``NMS_SITES``); the launch counts stay as they were."""
     from facerec_torch.ops import nms as nms_module
 
-    calls, kernel = [], nms_module.nms_fixed_point
+    calls, kernel = [], nms_module.nms_suppress
 
-    def recording(sup, keep0, unroll=4):
-        calls.append((sup.clone(), keep0.clone()))
-        return kernel(sup, keep0, unroll)
+    def recording(boxes, s0, valid, threshold, mode="union", unroll=4):
+        calls.append((boxes.clone(), s0.clone(), valid.clone(), threshold, mode))
+        return kernel(boxes, s0, valid, threshold, mode, unroll)
 
     recording.launches = 0
-    nms_module.nms_fixed_point = recording
+    nms_module.nms_suppress = recording
     try:
         with torch.no_grad():
             pipe.detector.detect(x)
     finally:
-        nms_module.nms_fixed_point = kernel
+        nms_module.nms_suppress = kernel
     return calls
 
 
@@ -402,7 +406,7 @@ def hold_kernels(pipe, x: torch.Tensor, r) -> dict:
     and rounds) on each of its calls. Returns the max abs error of each and
     the K1 near-tie slots; raises where one disagrees."""
     from facerec_torch.ops.gallery import gallery_topk, gallery_topk_plain
-    from facerec_torch.ops.nms import nms_fixed_point, nms_fixed_point_plain
+    from facerec_torch.ops.nms import nms_suppress, nms_suppress_plain
     from facerec_torch.ops.warp_fast import _align_prep, rotate_patches
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
@@ -430,13 +434,13 @@ def hold_kernels(pipe, x: torch.Tensor, r) -> dict:
     if len(calls) != len(NMS_SITES):
         raise AssertionError(f"the detect made {len(calls)} NMS calls, not {len(NMS_SITES)}")
     out["nms_rounds"] = {}
-    for site, (sup, keep0) in zip(NMS_SITES, calls):
-        keep, rounds = nms_fixed_point(sup, keep0)
-        ref, ref_rounds = nms_fixed_point_plain(sup, keep0)
+    for site, args in zip(NMS_SITES, calls):
+        keep, rounds = nms_suppress(*args)
+        ref, ref_rounds = nms_suppress_plain(*args)
         if not (torch.equal(keep, ref) and torch.equal(rounds, ref_rounds)):
-            raise AssertionError(f"the NMS kernel disagrees with its plain loop ({site})")
+            raise AssertionError(f"the NMS kernel disagrees with its plain version ({site})")
         out["nms_rounds"][site] = [int(rounds.max()), rounds.float().mean().item()]
-    out["nms_fixed_point"] = 0.0
+    out["nms_suppress"] = 0.0
 
     cfg = pipe.config
     lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)
@@ -656,6 +660,22 @@ def _rel(a: float, b: float) -> float:
     return abs(a - b) / abs(b) if b else abs(a - b)
 
 
+@contextlib.contextmanager
+def plain_batch_norm():
+    """Within the block the data-parallel BatchNorm runs its plain version on
+    the card too (``resnet.global_batch_norm_plain``): the yardstick that
+    ``train_layout`` times the native function against. A step captured
+    inside keeps it."""
+    from facerec_torch.models import resnet
+
+    native = resnet.global_batch_norm
+    resnet.global_batch_norm = resnet.global_batch_norm_plain
+    try:
+        yield
+    finally:
+        resnet.global_batch_norm = native
+
+
 def train_layout(world: int) -> dict:
     """The (world, 1) train step at ``bench_train``'s ArcFace (module
     docstring): captured against eager under deterministic cuDNN, each
@@ -718,6 +738,8 @@ def train_layout(world: int) -> dict:
         eager_b, params_b, _ = run(TRAIN_DTYPE, False)
         captured, params_c, per_step_bf16 = run(TRAIN_DTYPE, True, against_one=True)
         _, _, per_step = run("float32", True, against_one=True)
+        with plain_batch_norm():
+            _, _, per_step_plain = run("float32", True, against_one=True)
     finally:
         torch.backends.cudnn.deterministic = deterministic
 
@@ -733,27 +755,45 @@ def train_layout(world: int) -> dict:
            "captured_against_eager_drift": drift(captured, params_c, eager_a, params_a),
            "eager_against_eager_drift": drift(eager_b, params_b, eager_a, params_a),
            "metrics": captured, "per_step_against_one_process": per_step,
+           "per_step_against_one_process_plain_batch_norm": per_step_plain,
            "per_step_against_one_process_bf16": per_step_bf16}
     del params_a, params_b, params_c
     torch.cuda.empty_cache()
 
-    # the time, with cuDNN's default algorithms as bench_train takes it
-    state = copy.deepcopy(base)
-    step = make_train_step("arcface", cfg.compute_dtype, mesh)
-    for i in range(3):  # the first call captures
-        step(state, local[i % POOL])
-    torch.cuda.synchronize()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    for i in range(TIMED_STEPS):
-        step(state, local[i % POOL])
-    end.record()
-    torch.cuda.synchronize()
-    ms = start.elapsed_time(end) / TIMED_STEPS
-    prof = profiled(lambda: step(state, local[0]))
-    out.update({"step_ms": ms, "images_per_sec": n / (ms * 1e-3), "device_ms": prof["device_ms"],
+    def timed() -> dict:
+        """The captured step's time, with cuDNN's default algorithms as
+        bench_train takes it, and its profile."""
+        state = copy.deepcopy(base)
+        step = make_train_step("arcface", cfg.compute_dtype, mesh)
+        for i in range(3):  # the first call captures
+            step(state, local[i % POOL])
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(TIMED_STEPS):
+            step(state, local[i % POOL])
+        end.record()
+        torch.cuda.synchronize()
+        ms = start.elapsed_time(end) / TIMED_STEPS
+        prof = profiled(lambda: step(state, local[0]))
+        del step, state
+        torch.cuda.empty_cache()
+        return {"step_ms": ms, "images_per_sec": n / (ms * 1e-3), "device_ms": prof["device_ms"],
                 "nccl_device_ms": prof["nccl_device_ms"], "busy_share": prof["busy_share"],
-                "top_kernels_ms": prof["top_kernels_ms"]})
+                "top_kernels_ms": prof["top_kernels_ms"]}
+
+    # the native global BatchNorm against its plain version, in turns:
+    # native, plain, plain, native
+    turns = []
+    for kind in ("native", "plain", "plain", "native"):
+        with plain_batch_norm() if kind == "plain" else contextlib.nullcontext():
+            turns.append(dict(timed(), batch_norm=kind))
+    native = [t for t in turns if t["batch_norm"] == "native"]
+    out.update({k: sum(t[k] for t in native) / 2 for k in ("step_ms", "device_ms",
+                                                           "nccl_device_ms", "busy_share")})
+    out["images_per_sec"] = n / (out["step_ms"] * 1e-3)
+    out["top_kernels_ms"] = native[-1]["top_kernels_ms"]
+    out["batch_norm_turns"] = turns
 
     # the gradient's all-reduce on its own: one flat f32 tensor of every parameter
     numel = sum(p.numel() for p in base.model.parameters())
@@ -763,6 +803,7 @@ def train_layout(world: int) -> dict:
         all_reduce_(grad, group)
     torch.cuda.synchronize()
     dist.barrier()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
     for _ in range(TIMED_STEPS):
         all_reduce_(grad.mul_(0.25), group)
@@ -777,8 +818,8 @@ def train_layout(world: int) -> dict:
         faults.append("the captured steps differ from the eager steps, which equal themselves")
     # the first step from zero Adam moments moves each parameter by the
     # learning rate times its gradient's sign: where a gradient cancels to
-    # near 0, the global-batch and the native BatchNorm's roundings can pick
-    # either sign, so its parameters are printed (module docstring)
+    # near 0, any two f32 roundings of the step can pick either sign, so its
+    # parameters are printed (module docstring)
     if any(max(s["loss"], s["grad_norm"]) > TRAIN_RTOL for s in per_step) or any(
             s["params_l2"] > TRAIN_RTOL for s in per_step[1:]):
         faults.append(f"an f32 step is not within {TRAIN_RTOL} of one process's: {per_step}")
@@ -950,6 +991,8 @@ def main(argv: list[str] | None = None) -> int:
         train = [r["train"] for r in ranks]
         step_ms = max(t["step_ms"] for t in train)
         images = train[0]["global_batch"] / (step_ms * 1e-3)
+        per_turn = [max(t["batch_norm_turns"][i]["step_ms"] for t in train)
+                    for i in range(len(train[0]["batch_norm_turns"]))]
         summary["train"] = {
             "step_ms_by_rank": [t["step_ms"] for t in train], "images_per_sec": images,
             "one_card_bench_train": one_card,
@@ -957,11 +1000,21 @@ def main(argv: list[str] | None = None) -> int:
             "busy_share_by_rank": [t["busy_share"] for t in train],
             "device_ms_by_rank": [t["device_ms"] for t in train],
             "nccl_device_ms_by_rank": [t["nccl_device_ms"] for t in train],
+            # the native and the plain global BatchNorm in turns: the slowest rank's step
+            "batch_norm_turns": [
+                {"batch_norm": t["batch_norm"], "step_ms": ms,
+                 "images_per_sec": images_turn,
+                 "scaling": images_turn / (CARDS * one_card["train_imgs_per_sec"]),
+                 **{k: t[k] for k in ("device_ms", "nccl_device_ms", "busy_share")}}
+                for t, ms in zip(train[0]["batch_norm_turns"], per_turn)
+                for images_turn in [train[0]["global_batch"] / (ms * 1e-3)]],
             "eager_equals_itself": [t["eager_equals_itself"] for t in train],
             "captured_equals_eager": [t["captured_equals_eager"] for t in train],
             "captured_against_eager_drift": [t["captured_against_eager_drift"] for t in train],
             "eager_against_eager_drift": [t["eager_against_eager_drift"] for t in train],
             "per_step_against_one_process": train[0]["per_step_against_one_process"],
+            "per_step_against_one_process_plain_batch_norm":
+                train[0]["per_step_against_one_process_plain_batch_norm"],
             "per_step_against_one_process_bf16": train[0]["per_step_against_one_process_bf16"],
             "top_kernels_ms_rank0": train[0]["top_kernels_ms"],
             "allreduce": [t["allreduce"] for t in train]}

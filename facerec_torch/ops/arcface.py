@@ -38,6 +38,12 @@ class ArcFaceStats(NamedTuple):
     min_cos_theta: torch.Tensor
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in f32, or in f64 where it is f64: an f64 copy of a model
+    computes in f64 throughout."""
+    return x.to(torch.promote_types(x.dtype, torch.float32))
+
+
 def l2_normalize(x: torch.Tensor, dim: int = -1, eps: float = 1e-12) -> torch.Tensor:
     return x / torch.clamp(torch.linalg.vector_norm(x, dim=dim, keepdim=True), min=eps)
 
@@ -50,8 +56,8 @@ def _cosines(embeddings: torch.Tensor, weight: torch.Tensor) -> torch.Tensor:
     if embeddings.is_cuda and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError("the ArcFace cosine product is full f32: set "
                            "torch.backends.cuda.matmul.allow_tf32 = False")
-    x = l2_normalize(embeddings.float())
-    w = l2_normalize(weight.float())
+    x = l2_normalize(at_least_f32(embeddings))
+    w = l2_normalize(at_least_f32(weight))
     return x @ w.T
 
 

@@ -3,16 +3,18 @@
 
 Boxes are a padded [..., N, 4] buffer with a validity mask. Greedy NMS runs
 as the fixed point of "box i survives iff no surviving higher-scored box
-overlaps it past the threshold", ties going to the lower index. The overlap
-matrix and the score order are PyTorch ops; the fixed point over the boolean
-suppression matrix is ``nms_fixed_point``. On CUDA tensors it launches the
-kernel ``csrc/nms_fixed_point.cu`` (the counterpart of the JAX version's
-``while_loop``), which iterates until a round changes nothing without the
-host waiting, so the step it sits in can be captured in a CUDA graph. On CPU
-tensors it takes the plain version, ``nms_fixed_point_plain``: ``unroll``
-rounds per block and one host read per block to check convergence (rounds
-past the fixed point are idempotent, so the result does not depend on
-``unroll``).
+overlaps it past the threshold", ties going to the lower index. The
+suppression from the boxes is ``nms_suppress``: on CUDA tensors it launches
+the kernel ``csrc/nms_fixed_point.cu``, which builds each row's suppression
+bits from its boxes and scores in shared memory and iterates until a round
+changes nothing without the host waiting (the counterpart of the JAX
+version's overlap matrix and ``while_loop``), so the step it sits in can be
+captured in a CUDA graph. On CPU tensors it takes the plain version,
+``nms_suppress_plain``: the overlap matrix and the score order as PyTorch
+ops, then ``nms_fixed_point_plain`` over the boolean suppression matrix,
+``unroll`` rounds per block and one host read per block to check
+convergence (rounds past the fixed point are idempotent, so the result does
+not depend on ``unroll``).
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from facerec_torch import build
 from facerec_torch.ops.gallery import topk_stable
 
 MAX_N = 1024  # kMaxN in csrc/nms_fixed_point.cu
+MODES = ("union", "min", "dupmin")  # the kernel's mode numbers, in order
 
 
 def box_area(boxes: torch.Tensor) -> torch.Tensor:
@@ -65,16 +68,11 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
     n = boxes.shape[-2]
     neg = float("-inf")
     s0 = torch.where(valid, scores.float(), neg)
-    ov = overlap_matrix(boxes, mode)
     m = min(max_out if max_out is not None else n, n)
-    idx_r = torch.arange(n, device=boxes.device)
-    sj, si = s0[..., None, :], s0[..., :, None]
-    dominates = (sj > si) | ((sj == si) & (idx_r[None, :] < idx_r[:, None]))
-    sup = (ov > threshold) & dominates & valid[..., None, :]  # sup[i, j]: j can kill i
-    keep0 = valid & (s0 > neg)
-    rows = keep0.numel() // n if n else 0
-    keep, _ = nms_fixed_point(sup.reshape(rows, n, n), keep0.reshape(rows, n), unroll)
-    keep = keep.reshape(keep0.shape)
+    rows = valid.numel() // n if n else 0
+    keep, _ = nms_suppress(boxes.reshape(rows, n, 4), s0.reshape(rows, n),
+                           valid.reshape(rows, n), threshold, mode, unroll)
+    keep = keep.reshape(valid.shape)
 
     top_s, idx = topk_stable(torch.where(keep, s0, neg), m)
     kept = top_s > neg
@@ -85,7 +83,7 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
 
 def nms_fixed_point_plain(sup: torch.Tensor, keep0: torch.Tensor, unroll: int = 4
                           ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Plain version of the fixed-point kernel: sup [M, N, N] bool (sup[m,
+    """The fixed point of ``nms_suppress_plain``: sup [M, N, N] bool (sup[m,
     i, j]: j can suppress i), keep0 [M, N] bool -> (keep [M, N] bool, rounds
     [M] int32: the rounds each row ran until one changed nothing, that one
     included). ``unroll`` rounds run per block and the host reads once per
@@ -111,41 +109,61 @@ def nms_fixed_point_plain(sup: torch.Tensor, keep0: torch.Tensor, unroll: int = 
     return keep, torch.clamp(rounds, max=n)
 
 
-def nms_fixed_point(sup: torch.Tensor, keep0: torch.Tensor, unroll: int = 4
-                    ) -> tuple[torch.Tensor, torch.Tensor]:
-    """The NMS fixed point of ``nms_fixed_point_plain``: the CUDA kernel on
-    CUDA tensors (N up to ``MAX_N``; it raises above), the plain version on
-    CPU tensors (``unroll`` is read only there)."""
-    if not sup.is_cuda:
-        return nms_fixed_point_plain(sup, keep0, unroll)
-    m, n, n2 = sup.shape
-    if n != n2 or tuple(keep0.shape) != (m, n):
-        raise ValueError(f"sup {tuple(sup.shape)} and keep0 {tuple(keep0.shape)} do not "
-                         "make [M, N, N] and [M, N]")
-    if sup.dtype != torch.bool or keep0.dtype != torch.bool:
-        raise TypeError(f"sup and keep0 must be bool, not {sup.dtype} and {keep0.dtype}")
+def nms_suppress_plain(boxes: torch.Tensor, s0: torch.Tensor, valid: torch.Tensor,
+                       threshold: float, mode: str = "union", unroll: int = 4
+                       ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the NMS kernel: boxes [M, N, 4], the masked scores
+    s0 [M, N] (-inf where invalid), valid [M, N] bool -> (keep [M, N] bool,
+    rounds [M] int32), from ``overlap_matrix``, the score order (ties to the
+    lower index) and ``nms_fixed_point_plain``."""
+    n = s0.shape[-1]
+    idx = torch.arange(n, device=s0.device)
+    sj, si = s0[..., None, :], s0[..., :, None]
+    dominates = (sj > si) | ((sj == si) & (idx[None, :] < idx[:, None]))
+    sup = (overlap_matrix(boxes, mode) > threshold) & dominates & valid[..., None, :]
+    return nms_fixed_point_plain(sup, valid & (s0 > float("-inf")), unroll)
+
+
+def nms_suppress(boxes: torch.Tensor, s0: torch.Tensor, valid: torch.Tensor, threshold: float,
+                 mode: str = "union", unroll: int = 4
+                 ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The suppression of ``nms_suppress_plain``: the CUDA kernel on CUDA
+    tensors (f32 boxes and scores, N up to ``MAX_N``; it raises otherwise),
+    the plain version on CPU tensors (``unroll`` is read only there)."""
+    if not boxes.is_cuda:
+        return nms_suppress_plain(boxes, s0, valid, threshold, mode, unroll)
+    m, n, four = boxes.shape
+    if four != 4 or tuple(s0.shape) != (m, n) or tuple(valid.shape) != (m, n):
+        raise ValueError(f"boxes {tuple(boxes.shape)}, s0 {tuple(s0.shape)} and valid "
+                         f"{tuple(valid.shape)} do not make [M, N, 4], [M, N] and [M, N]")
+    if boxes.dtype != torch.float32 or s0.dtype != torch.float32 or valid.dtype != torch.bool:
+        raise TypeError(f"the NMS kernel takes f32 boxes and scores and bool valid, not "
+                        f"{boxes.dtype}, {s0.dtype} and {valid.dtype}")
+    if mode not in MODES:
+        raise ValueError(f"unknown overlap mode {mode!r}")
     if n > MAX_N:
         raise ValueError(f"the NMS kernel takes at most {MAX_N} boxes a row, not {n}")
-    dev = sup.device
+    dev = boxes.device
     keep = torch.empty((m, n), dtype=torch.bool, device=dev)
     rounds = torch.empty((m,), dtype=torch.int32, device=dev)
     if m == 0 or n == 0:
         return keep, rounds.zero_()
-    sup, keep0 = sup.contiguous(), keep0.contiguous()
+    boxes, s0, valid = boxes.contiguous(), s0.contiguous(), valid.contiguous()
     with torch.cuda.device(dev):
-        err = _launcher()(sup.data_ptr(), keep0.data_ptr(), m, n, keep.data_ptr(),
+        err = _launcher()(boxes.data_ptr(), s0.data_ptr(), valid.data_ptr(), m, n,
+                          float(threshold), MODES.index(mode), keep.data_ptr(),
                           rounds.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "nms_fixed_point")
-    nms_fixed_point.launches += 1
+    build.check(err, "nms_suppress")
+    nms_suppress.launches += 1
     return keep, rounds
 
 
-nms_fixed_point.launches = 0
+nms_suppress.launches = 0
 
 
 def _launcher():
-    fn = build.library("nms_fixed_point").nms_fixed_point_launch
+    fn = build.library("nms_fixed_point").nms_suppress_launch
     p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, i, p, p, p]
+    fn.argtypes = [p, p, p, i, i, ctypes.c_float, i, p, p, p]
     fn.restype = i
     return fn

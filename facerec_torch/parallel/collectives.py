@@ -63,8 +63,9 @@ def broadcast_(t: torch.Tensor, group, src_index: int = 0) -> torch.Tensor:
     return t
 
 
-def _gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
-    """[n, *x.shape]: every rank's ``x``, in group order."""
+def gather(x: torch.Tensor, group, n: int) -> torch.Tensor:
+    """[n, *x.shape]: every rank's ``x`` over ``group`` of ``n`` ranks, in
+    group order (no gradient)."""
     flat = x.reshape(-1).contiguous()  # gloo wants the output as the inputs concatenated
     staged = _staged(flat, group)
     src = _pinned(flat) if staged else flat
@@ -88,7 +89,7 @@ class _Gather(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group, n, index):
         ctx.group, ctx.index = group, index
-        return _gather(x, group, n)
+        return gather(x, group, n)
 
     @staticmethod
     def backward(ctx, g):

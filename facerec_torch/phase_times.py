@@ -30,6 +30,7 @@ PHASES = (
     ("build", "build: "),
     ("k1_checks", "K1 near-tie slots"),
     ("k1_times", "K1 time:"),
+    ("batchnorm", "batchnorm: phase"),
     ("k2_checks_and_render", "rendered "),
     ("serve", "serve: {"),
     ("serve_1048576", "serve_1048576: {"),

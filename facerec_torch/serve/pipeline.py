@@ -101,7 +101,7 @@ def _kernel_wrappers() -> tuple:
     advances by what its capture recorded."""
     from facerec_torch.ops import gallery, nms, warp_kernel
 
-    return gallery.gallery_topk, warp_kernel.rotate_patches_kernel, nms.nms_fixed_point
+    return gallery.gallery_topk, warp_kernel.rotate_patches_kernel, nms.nms_suppress
 
 
 class FacePipeline:

@@ -9,14 +9,14 @@ import math
 import pytest
 import torch
 
-from chip_smoke import K2_CASES, TRAIN_STEP_RTOL, k2_case, train_step_agrees
+from chip_smoke import K2_CASES, TRAIN_STEP_RTOL, k2_case, nms_adversarial_rows, train_step_agrees
 from facerec_torch.config import ArcFaceConfig, OptimizerConfig, SchedulerConfig, TrainConfig
 from facerec_torch.data.synthetic import write_synthetic_imagefolder
 from facerec_torch.models.arcface import build_embedder
 from facerec_torch.ops.arcface import cosine_logits
 from facerec_torch.ops.gallery import (bf16_rows_per_split, bf16_splits, gallery_topk,
                                        gallery_topk_plain)
-from facerec_torch.ops.nms import MAX_N, nms_fixed_point, nms_fixed_point_plain
+from facerec_torch.ops.nms import MAX_N, MODES, nms_suppress, nms_suppress_plain, overlap_matrix
 from facerec_torch.ops.warp_fast import rotate_patches
 from facerec_torch.ops.warp_kernel import rotate_patches_kernel, rotate_patches_tiled
 from facerec_torch.serve.pipeline import WARMUP_RUNS
@@ -453,65 +453,135 @@ def test_fold_on_the_card_matches_unfolded(dev, no_tf32, embedder):
     assert cos.min().item() > 1 - FOLD_COS
 
 
-def _order_respecting_sup(m, n, density, gen, dev):
-    """Random NMS inputs as ``nms`` builds them: sup[i, j] only where j
-    precedes i in a random score order (so the fixed point exists and is
-    greedy NMS), only for candidate j, with density ``density``."""
-    rank = torch.argsort(torch.rand(m, n, generator=gen, device=dev), dim=1).argsort(dim=1)
-    keep0 = torch.rand(m, n, generator=gen, device=dev) > 0.1
-    sup = ((torch.rand(m, n, n, generator=gen, device=dev) < density)
-           & (rank[:, None, :] < rank[:, :, None]) & keep0[:, None, :])
-    return sup, keep0
+def _nms_inputs(m, n, gen, dev, ties: bool = True, side=(2.0, 30.0), span=64.0):
+    """Random NMS rows: boxes with f32 corners (non-integer, so that the
+    overlaps round), sides in ``side`` inside a ``span`` square (dense
+    overlaps and chains), scores on a coarse grid (many ties) or continuous,
+    10% invalid; s0 is the scores masked to -inf as ``nms`` masks them."""
+    xy = torch.rand(m, n, 2, generator=gen, device=dev) * span
+    wh = side[0] + torch.rand(m, n, 2, generator=gen, device=dev) * (side[1] - side[0])
+    boxes = torch.cat([xy, xy + wh], -1)
+    scores = torch.rand(m, n, generator=gen, device=dev)
+    if ties:
+        scores = torch.floor(scores * 8) / 8
+    valid = torch.rand(m, n, generator=gen, device=dev) > 0.1
+    return boxes, torch.where(valid, scores, float("-inf")), valid
 
 
-def _assert_fixed_point_agrees(sup, keep0):
-    before = nms_fixed_point.launches
-    keep, rounds = nms_fixed_point(sup, keep0)
-    ref_keep, ref_rounds = nms_fixed_point_plain(sup, keep0)
+def _assert_suppression_agrees(boxes, s0, valid, threshold=0.5, mode="union"):
+    """The fused kernel against its plain version, keep and rounds equal,
+    one launch."""
+    before = nms_suppress.launches
+    keep, rounds = nms_suppress(boxes, s0, valid, threshold, mode)
+    ref_keep, ref_rounds = nms_suppress_plain(boxes, s0, valid, threshold, mode)
     torch.cuda.synchronize()
-    assert nms_fixed_point.launches == before + 1
-    assert torch.equal(keep, ref_keep) and torch.equal(rounds, ref_rounds)
-    return rounds
+    assert nms_suppress.launches == before + 1
+    assert torch.equal(keep, ref_keep) and torch.equal(rounds, ref_rounds), (mode, threshold)
+    return keep, rounds
 
 
-@pytest.mark.parametrize("n", [1, 20, 36, 37, 64, 512, MAX_N])
+@pytest.mark.parametrize("n", [1, 20, 36, 37, 64, 192, 512, MAX_N])
 @pytest.mark.parametrize("density", [0.02, 0.3])
 def test_nms_kernel_matches_plain(dev, n, density):
-    """Random order-respecting inputs at the serve step's widths (20, 36,
-    64, 512), at the kernel's limit, and at widths whose rows are not
-    16-byte aligned (1, 37): keep and rounds equal to the plain loop's."""
+    """Random rows at the serve step's widths (20, 32 + 4, 64, 192), at 1,
+    37, 512 and the kernel's limit, with sparse (``density`` 0.02: small
+    boxes) and dense overlaps, tied and continuous scores, in each mode:
+    keep and rounds equal to the plain version's."""
     gen = torch.Generator(device=dev).manual_seed(n)
     m = 7 if n > 64 else 130
-    _assert_fixed_point_agrees(*_order_respecting_sup(m, n, density, gen, dev))
+    span = 64.0 if density > 0.1 else 64.0 * math.sqrt(n)
+    for mode in MODES:
+        for ties in (True, False):
+            _assert_suppression_agrees(*_nms_inputs(m, n, gen, dev, ties, span=span), 0.5, mode)
 
 
 @pytest.mark.parametrize("n", [20, 64, 512, MAX_N])
 def test_nms_kernel_ladders(dev, n):
-    """Box i may be suppressed only by box i - 1: a chain N - 1 deep, which
-    takes all N rounds; beside it a chain broken half-way and an empty
-    row. Greedy keeps every other box."""
-    idx = torch.arange(n, device=dev)
-    chain = (idx[:, None] - 1 == idx[None, :])
-    sup = torch.stack([chain, chain & (idx[:, None] != n // 2), torch.zeros_like(chain)])
-    keep0 = torch.ones(3, n, dtype=torch.bool, device=dev)
-    rounds = _assert_fixed_point_agrees(sup, keep0)
-    assert rounds.tolist() == [n, max(n // 2, n - n // 2), 1]
-    keep, _ = nms_fixed_point(sup, keep0)
-    assert torch.equal(keep[0], idx % 2 == 0)
+    """A ladder of boxes, each 3 px right of the one before (IoU 7/13,
+    min-overlap 0.7 with its neighbours, below the threshold two apart) and
+    scores descending along it: a chain N - 1 deep, which takes all N
+    rounds; beside it the ladder broken half-way by an invalid rung, and a
+    row of boxes apart. Greedy keeps every other box."""
+    k = torch.arange(n, device=dev, dtype=torch.float32)
+    rung = torch.stack([3 * k, 0 * k, 3 * k + 10, 0 * k + 10], -1)
+    apart = torch.stack([20 * k, 0 * k, 20 * k + 10, 0 * k + 10], -1)
+    boxes = torch.stack([rung, rung, apart])
+    s0 = (1.0 - k / n).expand(3, n).contiguous()
+    valid = torch.ones(3, n, dtype=torch.bool, device=dev)
+    valid[1, n // 2] = False
+    s0 = torch.where(valid, s0, float("-inf"))
+    for mode in MODES:
+        keep, rounds = _assert_suppression_agrees(boxes, s0, valid, 0.5, mode)
+        assert rounds.tolist() == [n, max(n // 2, n - n // 2 - 1), 1]
+        assert torch.equal(keep[0], k.long() % 2 == 0)
 
 
 def test_nms_kernel_misaligned_rows(dev):
-    """Rows that start off a 16-byte boundary (a slice of a larger batch)."""
+    """Rows that start off a 16-byte boundary: a slice of a larger batch
+    (contiguous) and a column slice (copied by the wrapper)."""
     gen = torch.Generator(device=dev).manual_seed(5)
-    sup, keep0 = _order_respecting_sup(9, 37, 0.2, gen, dev)
-    _assert_fixed_point_agrees(sup[1:], keep0[1:])
+    boxes, s0, valid = _nms_inputs(9, 38, gen, dev)
+    _assert_suppression_agrees(boxes[1:], s0[1:], valid[1:])
+    _assert_suppression_agrees(boxes[:, 1:], s0[:, 1:], valid[:, 1:], 0.7, "dupmin")
 
 
 def test_nms_kernel_refuses_wide_rows(dev):
     n = MAX_N + 1
-    sup = torch.zeros(1, n, n, dtype=torch.bool, device=dev)
     with pytest.raises(ValueError, match="at most"):
-        nms_fixed_point(sup, torch.ones(1, n, dtype=torch.bool, device=dev))
+        nms_suppress(torch.zeros(1, n, 4, device=dev), torch.zeros(1, n, device=dev),
+                     torch.ones(1, n, dtype=torch.bool, device=dev), 0.5)
+    with pytest.raises(TypeError, match="f32"):
+        nms_suppress(torch.zeros(1, 4, 4, device=dev, dtype=torch.bfloat16),
+                     torch.zeros(1, 4, device=dev), torch.ones(1, 4, dtype=torch.bool,
+                                                            device=dev), 0.5)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_nms_kernel_threshold_ulps(dev, mode):
+    """Thresholds set to the exact overlap of pairs of random f32 boxes and
+    one ulp either side of it: a single rounding apart from the plain
+    version's order of f32 operations flips a bit here."""
+    gen = torch.Generator(device=dev).manual_seed(11)
+    boxes, s0, valid = _nms_inputs(16, 64, gen, dev, side=(8.0, 40.0), span=48.0)
+    ov = overlap_matrix(boxes, mode)
+    picks = ov[(ov > 0.05) & (ov < 0.95)]
+    assert picks.numel() > 100
+    for t in picks[torch.randperm(picks.numel(), generator=gen, device=dev)[:12]].tolist():
+        t32 = torch.tensor(t, dtype=torch.float32)
+        for u in (torch.nextafter(t32, torch.tensor(0.0)), t32,
+                  torch.nextafter(t32, torch.tensor(1.0))):
+            _assert_suppression_agrees(boxes, s0, valid, float(u), mode)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_nms_kernel_adversarial_rows(dev, mode):
+    """Ties, zero-area boxes, exact-threshold pairs and an all-invalid row
+    (``chip_smoke.nms_adversarial_rows``, which ``tests/test_torch_nms.py``
+    holds against JAX's ``nms`` on the CPU), boxes with NaN and infinite corners, and one box a row."""
+    boxes, scores, valid = (torch.from_numpy(a).to(dev) for a in nms_adversarial_rows())
+    s0 = torch.where(valid, scores, float("-inf"))
+    _assert_suppression_agrees(boxes, s0, valid, 0.5, mode)
+    odd = boxes.clone()
+    odd[1, 8] = torch.tensor([float("nan"), 0.0, 10.0, 10.0])
+    odd[1, 9] = torch.tensor([0.0, 0.0, float("inf"), 10.0])
+    odd[1, 10] = torch.tensor([float("-inf"), float("-inf"), float("inf"), float("inf")])
+    odd[1, 11] = torch.tensor([0.0, 0.0, float("inf"), 0.0])
+    _assert_suppression_agrees(odd, s0, valid, 0.5, mode)
+    _assert_suppression_agrees(boxes[:, :1].contiguous(), s0[:, :1].contiguous(),
+                               valid[:, :1].contiguous(), 0.5, mode)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(256, 64, 40, 40), (64, 512, 5, 5), (256, 512)])
+def test_global_batch_norm_native_matches_plain(dev, shape, dtype):
+    """The native global BatchNorm (``nn.SyncBatchNorm``'s fused kernels) on
+    a one-rank data axis against its plain version on the same inputs,
+    ``chip_smoke.batchnorm_case``'s bars: output, input gradient, weight and
+    bias gradients, and the running statistics after one step."""
+    from chip_smoke import batchnorm_case
+
+    out = batchnorm_case(dev, shape, dtype, seed=3)
+    assert out["ok"], out
 
 
 def _results_equal(a, b) -> bool:
@@ -543,10 +613,10 @@ def test_launches_per_replay(dev, no_tf32):
         x = pipe.upload(_demo_frames())
         pipe.run_step(x)
         before = (gallery_topk.launches, rotate_patches_kernel.launches,
-                  nms_fixed_point.launches)
+                  nms_suppress.launches)
         pipe.run_step(x)
         after = (gallery_topk.launches, rotate_patches_kernel.launches,
-                 nms_fixed_point.launches)
+                 nms_suppress.launches)
         assert tuple(a - b for a, b in zip(after, before)) == (1, k2, 5)
 
 

@@ -1,6 +1,8 @@
-"""The port's NMS fixed point against the JAX package's ``nms`` on the CPU,
-where the port takes the plain version of its kernel
-(``nms_fixed_point_plain``): adversarial ladders of boxes, each
+"""The port's NMS against the JAX package's ``nms`` on the CPU, where the
+port takes the plain version of its kernel (``nms_suppress_plain``: the
+overlap matrix, the score order and ``nms_fixed_point_plain``): rows of
+adversarial pairs (tied scores, overlaps exactly at the threshold,
+zero-area boxes, an all-invalid row); ladders of boxes, each
 overlapping the next, whose suppression chains run up to N deep (far past
 the 4-round unroll), with scores that descend along the ladder or are all
 equal (ties to the lower index), in all three overlap modes; and random
@@ -18,7 +20,9 @@ import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from facerec_torch.ops.nms import nms, nms_fixed_point, nms_fixed_point_plain, overlap_matrix
+from chip_smoke import nms_adversarial_rows
+from facerec_torch.ops.nms import (nms, nms_fixed_point_plain, nms_suppress, nms_suppress_plain,
+                                   overlap_matrix)
 from facerec_tpu.ops.nms import nms as jax_nms
 
 MODES = ("union", "min", "dupmin")
@@ -78,6 +82,25 @@ def _sup_keep0(boxes, scores, valid, mode):
 
 
 @pytest.mark.parametrize("mode", MODES)
+def test_suppression_plain_matches_jax_on_adversarial_rows(mode):
+    """``nms_suppress_plain`` (through ``nms`` on the CPU) against JAX's
+    ``nms`` on ``chip_smoke.nms_adversarial_rows``: the kept set and every output equal;
+    an overlap equal to the threshold does not suppress."""
+    boxes, scores, valid = nms_adversarial_rows()
+    got = _assert_nms_equal(boxes, scores, valid, mode, None)
+    s0 = torch.where(torch.from_numpy(valid), torch.from_numpy(scores), float("-inf"))
+    keep, _ = nms_suppress_plain(torch.from_numpy(boxes), s0, torch.from_numpy(valid),
+                                 THRESHOLD, mode)
+    kept = got[2].numpy()
+    for row in range(len(boxes)):
+        assert set(got[3][row].numpy()[kept[row]]) == set(np.flatnonzero(keep[row].numpy()))
+    assert not keep[2].any()
+    assert keep[3].tolist()[:4] == [False, True, False, False]
+    at_threshold = 1 if mode == "union" else 3  # its partner scores the same, lower index
+    assert keep[0, at_threshold]
+
+
+@pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("n", [20, 36, 64, 512])
 @pytest.mark.parametrize("tied", [False, True])
 def test_ladders_match_jax(mode, n, tied):
@@ -126,18 +149,22 @@ def test_plain_fixed_point_does_not_depend_on_unroll(unroll):
 
 
 def test_fixed_point_takes_the_plain_version_on_the_cpu():
-    """On CPU tensors the wrapper is the plain version and counts no
-    launch; empty batches and rows pass through."""
+    """On CPU tensors the NMS wrapper is the plain version and counts no
+    launch: the fixed point of the suppression matrix that ``nms`` builds;
+    empty batches and rows pass through."""
     rng = np.random.default_rng(2)
     boxes, scores = ladder(36, 36, False, rng)
-    sup, keep0 = _sup_keep0(boxes[None], scores[None], np.ones((1, 36), bool), "min")
-    before = nms_fixed_point.launches
-    keep, rounds = nms_fixed_point(sup, keep0)
-    assert nms_fixed_point.launches == before
+    valid = np.ones((1, 36), bool)
+    sup, keep0 = _sup_keep0(boxes[None], scores[None], valid, "min")
+    args = (torch.from_numpy(boxes[None]), torch.from_numpy(scores[None]),
+            torch.from_numpy(valid), THRESHOLD, "min")
+    before = nms_suppress.launches
+    keep, rounds = nms_suppress(*args)
+    assert nms_suppress.launches == before
     ref = nms_fixed_point_plain(sup, keep0)
     assert torch.equal(keep, ref[0]) and torch.equal(rounds, ref[1])
-    empty = nms_fixed_point(torch.zeros(0, 5, 5, dtype=torch.bool),
-                            torch.zeros(0, 5, dtype=torch.bool))
+    empty = nms_suppress(torch.zeros(0, 5, 4), torch.zeros(0, 5),
+                         torch.zeros(0, 5, dtype=torch.bool), THRESHOLD)
     assert empty[0].shape == (0, 5) and empty[1].shape == (0,)
     out = nms(torch.zeros(2, 0, 4), torch.zeros(2, 0), torch.zeros(2, 0, dtype=torch.bool))
     assert out[0].shape == (2, 0, 4)
