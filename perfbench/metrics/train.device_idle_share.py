@@ -1,0 +1,12 @@
+"""train.device_idle_share: % of the profiled window in which no operation
+ran on the card (one minus the union of the device operations' intervals
+over the window's wall time, torch.profiler); on several cards, the
+slowest rank's (the most device time outside NCCL's kernels, which
+spin while a rank waits: the rank the others wait for)."""
+
+
+def read(ctx):
+    prof = ctx.get("profile")
+    if prof is None or prof["window_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - prof.get("slowest_busy_s", prof["busy_s"]) / prof["window_s"])
