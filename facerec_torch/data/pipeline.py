@@ -4,6 +4,9 @@ each through pinned host memory to the card on a side stream, and the
 consumer's stream waits for that copy before it uses the batch. With a
 mesh every rank reads the same global batch and keeps its data slice
 (``local_slice``), so a ``(dp, 1)`` run sees the data one process sees.
+With tracing on (``utils.profiling``) the feed records each batch's
+staging (``train.feed.stage``), the consumer's wait (``train.feed.wait``)
+and the batches ready at each wait (``train.feed.depth``).
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ import torch
 
 from facerec_torch import resolve_device
 from facerec_torch.parallel.mesh import Mesh
+from facerec_torch.utils import profiling
 
 
 def local_slice(batch: dict, process_index: int | None = None,
@@ -78,18 +82,20 @@ def prefetch_to_device(
     def _producer():
         try:
             for batch in it:
-                if data is not None:
-                    batch = local_slice(batch, *data)
-                host = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in batch.items()}
-                if stream is None:
-                    item = (host, None)
-                else:
-                    with torch.cuda.device(dev), torch.cuda.stream(stream):
-                        moved = {k: t.pin_memory().to(dev, non_blocking=True)
-                                 for k, t in host.items()}
-                        ready = torch.cuda.Event()
-                        ready.record(stream)
-                    item = (moved, ready)
+                with profiling.span("train.feed.stage"):
+                    if data is not None:
+                        batch = local_slice(batch, *data)
+                    host = {k: torch.from_numpy(np.ascontiguousarray(v))
+                            for k, v in batch.items()}
+                    if stream is None:
+                        item = (host, None)
+                    else:
+                        with torch.cuda.device(dev), torch.cuda.stream(stream):
+                            moved = {k: t.pin_memory().to(dev, non_blocking=True)
+                                     for k, t in host.items()}
+                            ready = torch.cuda.Event()
+                            ready.record(stream)
+                        item = (moved, ready)
                 if not _put(q, item, stop):
                     return
         except BaseException as e:  # re-raised in the consumer
@@ -101,7 +107,10 @@ def prefetch_to_device(
     thread.start()
     try:
         while True:
-            item = q.get()
+            if profiling.enabled():  # the batches ready when the consumer asks
+                profiling.count("train.feed.depth", q.qsize())
+            with profiling.span("train.feed.wait"):
+                item = q.get()
             if item is end:
                 if err:
                     raise err[0]

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 
 from facerec_torch.parallel.collectives import all_reduce_, gather, psum
 from facerec_torch.parallel.mesh import Mesh, sharded_data_mesh
+from facerec_torch.utils import profiling
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -109,7 +110,9 @@ class _GlobalBatchNorm(torch.autograd.Function):
     step's gradient sum. The counts are fills (every rank's slice has the
     same shape), so the step holds no copy from the host and can be
     captured. x: channels_last [N, C, H, W] or [N, C], f32 or bf16 with f32
-    weight and bias. ``group`` None is one rank (no collective)."""
+    weight and bias. ``group`` None is one rank (no collective). The
+    all-gather is the device span ``bn.gather`` (``utils.profiling``),
+    numbered by its order in the forward pass."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps, group, n):
@@ -118,7 +121,11 @@ class _GlobalBatchNorm(torch.autograd.Function):
         c = x.shape[1]
         mean, invstd = torch.batch_norm_stats(x, eps)
         local = torch.cat([mean, invstd])
-        every = local[None] if group is None else gather(local, group, n)
+        if group is None:
+            every = local[None]
+        else:  # the span holds the wait for the slowest rank
+            with profiling.device_span("bn.gather", x.device, numbered=True):
+                every = gather(local, group, n)
         count = x.numel() // c
         # the kernel reads the counts in the running statistics' dtype (the
         # input's without them): scratch f32 ones, left as they are by a

@@ -25,6 +25,7 @@ import torch
 
 from facerec_torch import build
 from facerec_torch.ops.gallery import topk_stable
+from facerec_torch.utils import profiling
 
 MAX_N = 1024  # kMaxN in csrc/nms_fixed_point.cu
 MODES = ("union", "min", "dupmin")  # the kernel's mode numbers, in order
@@ -64,14 +65,17 @@ def nms(boxes: torch.Tensor, scores: torch.Tensor, valid: torch.Tensor,
         unroll: int = 4):
     """Greedy NMS over [..., N]. Returns (boxes, scores, keep, gather_idx),
     sorted by score, suppressed and invalid slots masked out and truncated
-    to ``max_out`` slots."""
+    to ``max_out`` slots. With tracing on, the most rounds a row ran is
+    added to the device counter ``detect.nms_rounds``."""
     n = boxes.shape[-2]
     neg = float("-inf")
     s0 = torch.where(valid, scores.float(), neg)
     m = min(max_out if max_out is not None else n, n)
     rows = valid.numel() // n if n else 0
-    keep, _ = nms_suppress(boxes.reshape(rows, n, 4), s0.reshape(rows, n),
-                           valid.reshape(rows, n), threshold, mode, unroll)
+    keep, rounds = nms_suppress(boxes.reshape(rows, n, 4), s0.reshape(rows, n),
+                                valid.reshape(rows, n), threshold, mode, unroll)
+    if profiling.enabled() and rounds.numel():
+        profiling.device_count("detect.nms_rounds", rounds.max())
     keep = keep.reshape(valid.shape)
 
     top_s, idx = topk_stable(torch.where(keep, s0, neg), m)

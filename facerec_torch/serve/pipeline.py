@@ -69,6 +69,7 @@ from facerec_torch.ops.warp_fast import align_and_crop_fast_batched
 from facerec_torch.parallel.collectives import global_topk_merge
 from facerec_torch.parallel.mesh import Mesh, batch_sharding, capturable, warm_collectives
 from facerec_torch.serve.gallery import GalleryStore
+from facerec_torch.utils import profiling
 
 DEFAULT_LANDMARKS = [[40.0, 60.0], [120.0, 60.0], [80.0, 90.0], [50.0, 120.0], [110.0, 120.0]]
 WARMUP_RUNS = 2  # eager runs of the step on a side stream before its capture
@@ -145,32 +146,37 @@ class FacePipeline:
         mesh: this rank's slice of the batch, as ``upload`` gives it)."""
         cfg = self.config
         b, f = frames.shape[0], cfg.max_faces
-        d = self.detector.detect(frames)
-        valid = d.valid & (d.probs >= cfg.detection_threshold)
-        boxes = d.boxes
-        if self.face_margin > 0:
-            boxes = bbox_with_margin(boxes, self.face_margin, self.frame_hw)
-        # clamp to the frame and give invalid slots a small fixed box, so the
-        # align stage never resamples from degenerate boxes
-        h, w = self.frame_hw
-        x1 = torch.clamp(boxes[..., 0], 0.0, w - 2.0)
-        y1 = torch.clamp(boxes[..., 1], 0.0, h - 2.0)
-        x2 = torch.clamp(torch.maximum(boxes[..., 2], x1 + 1.0), max=float(w))
-        y2 = torch.clamp(torch.maximum(boxes[..., 3], y1 + 1.0), max=float(h))
-        boxes = torch.where(valid[..., None], torch.stack([x1, y1, x2, y2], dim=-1),
-                            self._default_box)
-        landmarks = torch.where(valid[..., None, None], d.landmarks, self._default_lmk)
-        crops = self.align(frames, boxes, landmarks)
-        crops = crops.reshape(b * f, cfg.embed_size, cfg.embed_size, 3)
-        emb = l2_normalize(self.embedder.embed(crops).float())
-        count = self.gallery.count_device
-        scores, idx = self.match(emb)
-        dist = cosine_to_euclidean(scores)
-        emb = emb.reshape(b, f, -1)
-        scores = scores.reshape(b, f, cfg.top_k)
-        idx = idx.reshape(b, f, cfg.top_k)
-        dist = dist.reshape(b, f, cfg.top_k)
-        is_match = valid & (dist[..., 0] <= cfg.recognition_threshold) & (count > 0)
+        dev = frames.device
+        with profiling.device_span("serve.step.detect", dev):
+            d = self.detector.detect(frames)
+        with profiling.device_span("serve.step.align", dev):
+            valid = d.valid & (d.probs >= cfg.detection_threshold)
+            boxes = d.boxes
+            if self.face_margin > 0:
+                boxes = bbox_with_margin(boxes, self.face_margin, self.frame_hw)
+            # clamp to the frame and give invalid slots a small fixed box, so the
+            # align stage never resamples from degenerate boxes
+            h, w = self.frame_hw
+            x1 = torch.clamp(boxes[..., 0], 0.0, w - 2.0)
+            y1 = torch.clamp(boxes[..., 1], 0.0, h - 2.0)
+            x2 = torch.clamp(torch.maximum(boxes[..., 2], x1 + 1.0), max=float(w))
+            y2 = torch.clamp(torch.maximum(boxes[..., 3], y1 + 1.0), max=float(h))
+            boxes = torch.where(valid[..., None], torch.stack([x1, y1, x2, y2], dim=-1),
+                                self._default_box)
+            landmarks = torch.where(valid[..., None, None], d.landmarks, self._default_lmk)
+            crops = self.align(frames, boxes, landmarks)
+        with profiling.device_span("serve.step.embed", dev):
+            crops = crops.reshape(b * f, cfg.embed_size, cfg.embed_size, 3)
+            emb = l2_normalize(self.embedder.embed(crops).float())
+        with profiling.device_span("serve.step.match", dev):
+            count = self.gallery.count_device
+            scores, idx = self.match(emb)
+            dist = cosine_to_euclidean(scores)
+            emb = emb.reshape(b, f, -1)
+            scores = scores.reshape(b, f, cfg.top_k)
+            idx = idx.reshape(b, f, cfg.top_k)
+            dist = dist.reshape(b, f, cfg.top_k)
+            is_match = valid & (dist[..., 0] <= cfg.recognition_threshold) & (count > 0)
         return PipelineResult(boxes, d.probs, d.landmarks, valid, emb, scores, idx, dist,
                               is_match)
 
@@ -245,7 +251,7 @@ class FacePipeline:
             # a pool is shared only while a graph holds it: the new graphs take a new one
             self._pool = None
         key = (kind, tuple(frames.shape), frames.dtype, self.precise_align, self.face_margin,
-               self.config)
+               self.config, profiling.enabled())
         cap = self._graphs.get(key)
         if cap is None:
             cap = self._graphs[key] = self._capture(body, frames)
@@ -343,8 +349,24 @@ class FacePipeline:
         return self.run_step(self.upload(frames))
 
     def identify(self, frames: np.ndarray) -> list[list[dict]]:
-        """Per frame, a list of face dicts with names (the demo's shape)."""
-        r = PipelineResult(*(t.cpu().numpy() for t in self.process(frames)))
+        """Per frame, a list of face dicts with names (the demo's shape). A
+        request of the tracing registry (``utils.profiling``): the host's
+        parts ``serve.upload``, ``serve.launch``, ``serve.readback`` and
+        ``serve.decode``, and ``serve.valid_slots``."""
+        with profiling.request("serve.request", self.device):
+            with profiling.span("serve.upload"):
+                x = self.upload(frames)
+            with profiling.span("serve.launch"):
+                res = self.run_step(x)
+            with profiling.span("serve.readback"):
+                r = PipelineResult(*(t.cpu().numpy() for t in res))
+            if profiling.enabled():  # the card has finished the step: read its stamps
+                profiling.harvest(self.device)
+                profiling.count("serve.valid_slots", int(r.valid.sum()))
+            with profiling.span("serve.decode"):
+                return self._decode(r)
+
+    def _decode(self, r: PipelineResult) -> list[list[dict]]:
         out = []
         for bi in range(r.boxes.shape[0]):
             faces = []

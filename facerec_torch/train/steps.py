@@ -17,8 +17,11 @@ them once per epoch. A siamese batch is a pair batch (``image_a``,
 ``image_b``, ``pair_label``), and its metrics also count the same and the
 different pairs apart. ``compute_dtype`` "bfloat16" runs the model under
 autocast with f32 parameters; the margin logits and the loss stay f32.
-The train step's parts are named ranges (``train_step.forward``,
-``.backward``, ``.grads``, ``.optimizer``) that torch.profiler reports.
+The train step's parts are device spans of the tracing registry
+(``utils.profiling``: ``train_step.forward``, ``.backward``, ``.grads``,
+``.optimizer``), which the card stamps in a replay too, and ranges that
+torch.profiler reports; a call is a ``train.step`` request whose host part
+is ``train.step.launch``.
 
 On a card, the train step runs as one captured program, the counterpart
 of JAX's jitted step (with a mesh of several ranks, where every group is
@@ -59,13 +62,13 @@ from __future__ import annotations
 from typing import Any, Callable, NamedTuple
 
 import torch
-from torch.profiler import record_function
 
 from facerec_torch.models import get_criterion
 from facerec_torch.models.losses import pairwise_distance
 from facerec_torch.parallel.collectives import psum
 from facerec_torch.parallel.mesh import Mesh, capturable, data_parallel, warm_collectives
 from facerec_torch.train.state import TrainState, global_norm
+from facerec_torch.utils import profiling
 
 SIAMESE_THRESHOLD = 0.5  # distance below which a pair counts as the same person
 
@@ -158,6 +161,10 @@ class TrainStep:
         self._pool = None  # the graphs' shared memory pool
 
     def __call__(self, state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
+        with profiling.request("train.step", state.device), profiling.span("train.step.launch"):
+            return self._call(state, batch)
+
+    def _call(self, state: TrainState, batch: dict) -> dict[str, torch.Tensor]:
         if state.device.type != "cuda" or not self._capturable:
             return self.eager(state, batch)
         model = state.model
@@ -168,7 +175,8 @@ class TrainStep:
             self._graph_inputs = inputs
             # a pool is shared only while a graph holds it: the new graphs take a new one
             self._pool = None
-        key = tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in batch.items()))
+        key = (tuple(sorted((k, tuple(v.shape), v.dtype) for k, v in batch.items())),
+               profiling.enabled())
         cap = self._graphs.get(key)
         if cap is None:
             cap = self._graphs[key] = self._capture(state, batch)
@@ -225,7 +233,7 @@ class TrainStep:
             model.train()
         dev = state.device
         params = state.opt_state.params
-        with record_function("train_step.forward"):
+        with profiling.device_span("train_step.forward", dev):
             with _autocast(dev, self.compute_dtype), data_parallel(sharded):
                 outputs = _forward(model, model_type, batch, state.epoch_tensor, generator)
             loss = self._loss_fn(outputs, batch, batch.get("mask"))
@@ -233,9 +241,9 @@ class TrainStep:
             if sharded is not None:  # this rank's share of the global masked mean
                 local = _count(outputs, batch)
                 objective = loss * local / torch.clamp(psum(local, sharded), min=1.0)
-        with record_function("train_step.backward"):
+        with profiling.device_span("train_step.backward", dev):
             grads = torch.autograd.grad(objective, params, allow_unused=True)
-        with record_function("train_step.grads"), torch.no_grad():
+        with profiling.device_span("train_step.grads", dev), torch.no_grad():
             grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, params)]
             if sharded is not None:
                 grads = _psum_grads(grads, sharded)
@@ -245,7 +253,7 @@ class TrainStep:
             if sharded is not None:
                 metrics = _psum_metrics(metrics, sharded)
             metrics["grad_norm"] = global_norm(grads)
-        with record_function("train_step.optimizer"):
+        with profiling.device_span("train_step.optimizer", dev):
             state.opt_state.step(grads)
         return metrics
 
