@@ -48,15 +48,21 @@ Phases, each of which raises (and so exits nonzero) on failure:
               half filled), through the captured step: the first call
               captures the CUDA graph (its time and peak memory printed),
               then one replay with every launch count set to 0 just before:
-              K1 and K2 once and the NMS kernel 5 times (the profiler's
-              kernel names on one replay must say the same), at least 0.95 x
+              K1 and K2 once, the NMS kernel 5 times and the crop kernel 3
+              times (the profiler's kernel names on one replay must say the
+              same), at least 0.95 x
               384 faces found at p >= 0.6, and every field ``torch.equal``
               to the eager ``step`` on the same frames; the NMS kernel
               bit for bit (keep and rounds) against its plain version
               (overlap matrix, score order, fixed point) on each of its five
               calls' own boxes, scores and validity (every serve path, the
               demo and the mesh ranks too), the rounds each took, and its
-              ms, device ms and bound on each; ``dispatch_demo`` on the 48
+              ms, device ms and bound on each; the crop kernel bit for bit
+              against the matmul route on each of its three calls' own
+              frames and boxes (R-Net, O-Net, align; two on the precise
+              path; every serve path, the demo and the mesh ranks too), and
+              its ms, device ms, host ms, bound and the matmul route's ms on
+              each; ``dispatch_demo`` on the 48
               frames must return before an
               event recorded right after it is done (host ms beside device
               ms); the embed stage alone, eager against one graph (serve and
@@ -106,14 +112,14 @@ Phases, each of which raises (and so exits nonzero) on failure:
               ``detected_p090_ok`` true, its ``#`` line, and no JAX module
               imported (``-X importtime``); then the bench's ``prepare`` and
               ``measure`` in this process with the counts from 0 (every
-              kernel launched; one replay K1 1, K2 1, NMS 5 by the
+              kernel launched; one replay K1 1, K2 1, NMS 5, crop 3 by the
               profiler's kernel names) and each kernel held on the bench's
               own inputs; its faces/s beside the serve phase's captured
               figure;
      mesh     the mesh path (``facerec_torch/parallel``): at world size 1
               over NCCL, the serve step through ``FacePipeline(mesh=(1, 1))``,
               captured and replayed (the replay ``torch.equal`` to the eager
-              mesh step; K1 1, K2 1 and NMS 5 per replay, by count and by
+              mesh step; K1 1, K2 1, NMS 5 and crop 3 per replay, by count and by
               the profiler's kernel names), and one f32 ArcFace train step
               through the mesh path, each ``torch.equal`` to the plain one;
               then two
@@ -338,6 +344,13 @@ NMS_SITES = ("per_scale", "cross_scale", "rnet", "large_face", "final")
 # clamps, a product), then union 5 (add, subtract, clamp, divide, compare),
 # min 4 (min, clamp, divide, compare), dupmin 11
 NMS_PAIR_OPS = {"union": 14, "min": 13, "dupmin": 20}
+# the crop kernel's calls in a serve step, in call order (detect/mtcnn.py's
+# R-Net and O-Net crops, ops/warp_fast.py::_align_prep); the precise align
+# takes none
+CROP_SITES = ("rnet", "onet", "align")
+# f32 operations of one crop output value: two row-pass sums and the column
+# pass, each two products and two sums from a +0 start
+CROP_VALUE_OPS = 12
 K1_TRAINED_TOL = 6.0e-7  # K1 against its plain version on serve_trained's inputs
 ID_CLASSES, ID_RENDERS, ID_SIZE = 16, 24, 160  # the arcface_synth dataset's shape (synth16)
 # No seed 0-9 of the synthetic generator rebuilds the dataset the checkpoint
@@ -689,6 +702,8 @@ def _kernels_per_call(fn, iters: int = 20) -> list:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from facerec_torch.utils.profiling import device_ops
+
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -696,7 +711,7 @@ def _kernels_per_call(fn, iters: int = 20) -> list:
             fn()
         torch.cuda.synchronize()
     return [(e.key, e.self_device_time_total / iters / 1e3, e.count / iters)
-            for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+            for e in device_ops(prof)]
 
 
 def _kernel_device_ms(fn, names: tuple[str, ...], iters: int = 20) -> float:
@@ -1136,6 +1151,7 @@ def small_input_agrees(dev, embedder: str = "arcface") -> None:
 
 
 def _zero_launches() -> None:
+    from facerec_torch.ops.crop_kernel import crop_resize_kernel
     from facerec_torch.ops.gallery import gallery_topk
     from facerec_torch.ops.nms import nms_suppress
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
@@ -1143,22 +1159,26 @@ def _zero_launches() -> None:
     gallery_topk.launches = 0
     rotate_patches_kernel.launches = 0
     nms_suppress.launches = 0
+    crop_resize_kernel.launches = 0
 
 
 def _launches() -> dict:
+    from facerec_torch.ops.crop_kernel import crop_resize_kernel
     from facerec_torch.ops.gallery import gallery_topk
     from facerec_torch.ops.nms import nms_suppress
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
     return {"gallery_topk": gallery_topk.launches, "shear_rotate": rotate_patches_kernel.launches,
-            "nms_suppress": nms_suppress.launches}
+            "nms_suppress": nms_suppress.launches, "crop_resize": crop_resize_kernel.launches}
 
 
 def _step_launches(precise: bool = False, steps: int = 1) -> dict:
     """The launches ``steps`` serve steps make: K1 once, K2 once (not on
-    the precise path), the NMS kernel once for each of its five calls."""
+    the precise path), the NMS kernel once for each of its five calls, the
+    crop kernel once for each of its three (two on the precise path)."""
     return {"gallery_topk": steps, "shear_rotate": 0 if precise else steps,
-            "nms_suppress": len(NMS_SITES) * steps}
+            "nms_suppress": len(NMS_SITES) * steps,
+            "crop_resize": (len(CROP_SITES) - (1 if precise else 0)) * steps}
 
 
 def hold_nms(path: str, pipe, x) -> dict:
@@ -1275,16 +1295,72 @@ def time_nms(pipe, x) -> list[dict]:
     return rows
 
 
+def crop_read_bytes(images, boxes, out: int) -> int:
+    """Bytes a crop call reads: the source pixels its crops' taps reach,
+    each once a frame, and 16 bytes of box a crop."""
+    import numpy as np
+    import torch
+
+    from facerec_torch.ops.crop_kernel import crop_taps
+
+    b, h, w, c = images.shape
+    x1, y1, x2, y2 = boxes.float().cpu().unbind(-1)
+    iy = crop_taps(y1, torch.clamp(y2 - y1, min=1.0) / out, out, h)[0].numpy()
+    ix = crop_taps(x1, torch.clamp(x2 - x1, min=1.0) / out, out, w)[0].numpy()
+    reached = np.zeros((b, h, w), bool)
+    for f in range(b):
+        for n in range(boxes.shape[1]):
+            reached[f][np.ix_(np.unique(iy[f, n]), np.unique(ix[f, n]))] = True
+    return int(reached.sum()) * c * images.element_size() + boxes.numel() * 4
+
+
+def time_crops(pipe, x, r) -> list[dict]:
+    """The crop kernel at each of its three calls in one serve step, on the
+    step's own inputs (``multichip.record_crops``): CUDA-event ms over
+    back-to-back calls, its device ms (profiler) and host ms, the matmul
+    route's ms, and the bound: the output written and the bytes read
+    (``crop_read_bytes``) over 3.35 TB/s, or ``CROP_VALUE_OPS`` f32
+    operations an output value over the CUDA-core f32 rate."""
+    from facerec_torch.multichip import record_crops
+    from facerec_torch.ops.crop_kernel import crop_resize_kernel
+    from facerec_torch.ops.warp_fast import crop_resize_matmul_batched
+
+    rows = []
+    for site, args in zip(CROP_SITES, record_crops(pipe, x, r)):
+        images, boxes, out, out_dtype = args
+        values = boxes.shape[0] * boxes.shape[1] * out * out * images.shape[-1]
+        written, read = values * out_dtype.itemsize, crop_read_bytes(images, boxes, out)
+        bound, by = _bound_ms(written + read, CROP_VALUE_OPS * values)
+
+        def fn(args=args):
+            return crop_resize_kernel(*args)
+
+        row = {"site": site, "frames": boxes.shape[0], "crops": boxes.shape[1], "out": out,
+               "source": [images.shape[1], images.shape[2], str(images.dtype)[6:]],
+               "out_dtype": str(out_dtype)[6:], "ms": _time_ms(fn, iters=50),
+               "device_ms": _kernel_device_ms(fn, ("crop_resize",)), "host_ms": _host_ms(fn),
+               "plain_ms": _time_ms(lambda args=args: crop_resize_matmul_batched(*args),
+                                    iters=10, warmup=2),
+               "bound_ms": bound, "bound_by": by, "written_mb": written / 1e6,
+               "read_mb": read / 1e6, "library_ms": None}
+        row["bound_share_of_device_ms"] = row["bound_ms"] / row["device_ms"]
+        rows.append(row)
+        print("crop time: " + json.dumps(row), flush=True)
+    if [row["site"] for row in rows] != list(CROP_SITES):
+        raise AssertionError(f"the step made crop calls {[row['site'] for row in rows]}")
+    return rows
+
+
 def replay_launches(path: str, pipe, x, want: dict) -> dict:
     """Launches of each port kernel in one replay of the captured step, by
     the kernel names torch.profiler reports (K1's first pass, K2, the NMS
-    kernel); where the profiler reports no kernel under replay, counted on
-    the eager step instead, and said so."""
+    kernel, the crop kernel); where the profiler reports no kernel under
+    replay, counted on the eager step instead, and said so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    names = {"gallery_topk": "topk_partial", "shear_rotate": "shear_rotate",
-             "nms_suppress": "nms_suppress"}
+    from facerec_torch.multichip import KERNEL_NAMES as names
+    from facerec_torch.utils.profiling import device_ops
 
     def count(fn):
         fn()
@@ -1292,8 +1368,7 @@ def replay_launches(path: str, pipe, x, want: dict) -> dict:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             fn()
             torch.cuda.synchronize()
-        kernels = [e for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA]
+        kernels = device_ops(prof)
         return ({k: sum(e.count for e in kernels if n in e.key) for k, n in names.items()},
                 sum(e.count for e in kernels))
 
@@ -1388,11 +1463,14 @@ def hold_path_kernels(path: str, pipe, x, r) -> dict:
     """Each kernel a serve path launched, against its plain version on the
     inputs that path gave it: K1 on the step's embeddings, gallery and count
     (``_k1_case``'s bars); the NMS kernel bit for bit on each of its five
-    calls (``hold_nms``); K2 (fast align only) bit for bit on the patches,
-    angles and centres that the step's boxes and landmarks give. Returns the
-    max abs error of each, and the NMS rounds per call (max, mean)."""
+    calls (``hold_nms``); the crop kernel bit for bit on each of its three
+    calls (two precise; ``multichip.hold_crops``); K2 (fast align only) bit
+    for bit on the patches, angles and centres that the step's boxes and
+    landmarks give. Returns the max abs error of each, and the NMS rounds
+    per call (max, mean)."""
     import torch
 
+    from facerec_torch.multichip import hold_crops
     from facerec_torch.ops.warp_fast import _align_prep, rotate_patches
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
@@ -1404,6 +1482,9 @@ def hold_path_kernels(path: str, pipe, x, r) -> dict:
     sites = hold_nms(path, pipe, x)
     err["nms_suppress"] = 0.0  # hold_nms raised on any differing keep bit or round count
     err["nms_rounds"] = {k: [v["rounds_max"], v["rounds_mean"]] for k, v in sites.items()}
+    crops = hold_crops(pipe, x, r)
+    err["crop_resize"] = 0.0  # hold_crops raised on any differing value
+    print(f"crop {path}: bit for bit on the calls {crops}", flush=True)
     if not pipe.precise_align:
         lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)
         patches, angle, centers = _align_prep(x.float(), r.boxes, lm, cfg.embed_size, 0.15)
@@ -1450,9 +1531,10 @@ def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
     ``capacity`` rows, half filled by ``enroll(pipe, n)``, through the
     captured step (``process``): the first call captures it (its peak
     memory is printed); one replay with the counts from 0 launches K1 once,
-    K2 once (0 precise) and the NMS kernel 5 times, which the profiler's
-    kernel names confirm; the replay's result equals the eager step's. Then
-    faces/s and the busy share captured and eager, in turns. Returns the
+    K2 once (0 precise), the NMS kernel 5 times and the crop kernel 3 times
+    (2 precise), which the profiler's kernel names confirm; the replay's
+    result equals the eager step's. Then faces/s and the busy share
+    captured and eager, in turns. Returns the
     kernels' launches in one replay, step stats and the pipeline."""
     import numpy as np
     import torch
@@ -1512,6 +1594,7 @@ def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
     extra["kernels_held"] = held
     if path == "serve":
         extra["nms_time"] = time_nms(pipe, x)
+        extra["crop_time"] = time_crops(pipe, x, r)
         extra["dispatch_demo"] = dispatch_returns_early(pipe, frames)
     if path in ("serve", "serve_facenet"):
         extra["embed_alone"] = embed_captured(pipe, x)
@@ -1590,8 +1673,8 @@ def bench_cli(card: str) -> dict:
 def bench_in_process(dev) -> tuple[dict, dict, dict]:
     """``facerec_torch.bench``'s ``prepare`` and ``measure`` in this process,
     with every launch count set to 0 just before: K1, K2 and the NMS kernel
-    launched; the profiler's kernel names on one replay give K1 1, K2 1 and
-    NMS 5; each kernel held against its plain version on the bench's own
+    launched; the profiler's kernel names on one replay give K1 1, K2 1,
+    NMS 5 and the crop kernel 3; each kernel held against its plain version on the bench's own
     inputs. Returns (launches over ``measure``, held errors, its result)."""
     import torch
 
@@ -1775,6 +1858,8 @@ def device_busy(step, steps: int = 3) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    from facerec_torch.utils.profiling import device_ops
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -1785,9 +1870,7 @@ def device_busy(step, steps: int = 3) -> dict:
     # the train step's named parts (record_function) show on both timelines;
     # their spans are not kernel time
     parts = [e for e in prof.key_averages() if e.key.startswith("train_step.")]
-    dev_events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.startswith("train_step.")]
+    dev_events = device_ops(prof)
     total_us = sum(e.self_device_time_total for e in dev_events)
     top = sorted(dev_events, key=lambda e: -e.self_device_time_total)[:8]
     out = {"device_busy_share": total_us / wall_us if total_us else None,
@@ -3037,16 +3120,20 @@ def k2_tilings(k2_in, blocks_per_sm=(2, 1), segments=(1, 2, 3, 4)) -> list[dict]
     return out
 
 
-def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time) -> list[dict]:
+def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time,
+                crop_time) -> list[dict]:
     """The kernels line: each kernel's launches on every path, its error at
     the serve shape and on each path's own inputs (``held``), and its
     times (the NMS kernel's on each of the serve path's five calls,
-    ``nms_time``; its headline at the cross-scale call, the largest)."""
+    ``nms_time``, its headline at the cross-scale call, the largest; the
+    crop kernel's on each of its three, ``crop_time``, its headline at the
+    align call, the largest)."""
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
     from facerec_torch.ops.warp_fast import rotate_patches
 
     serve_row = next(r for r in k1_sizes if r["rows"] == SERVE_ROWS)
     cross = next(r for r in nms_time if r["site"] == "cross_scale")
+    align = next(r for r in crop_time if r["site"] == "align")
     patches, angles, centers, e = k2_in
     n, p = patches.shape[0], patches.shape[1]
     c = patches.shape[3]
@@ -3097,6 +3184,20 @@ def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time) -> li
                       for key in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
                                   "call_device_ms", "call_kernels")},
          "sites": nms_time},
+        {"name": "crop_resize", "route": "cuda", "source": "facerec_torch/csrc/crop_resize.cu",
+         "replaces": "facerec_tpu/ops/warp_fast.py:53",
+         "launches": launches["serve"]["crop_resize"],
+         "launches_by_path": {k: v["crop_resize"] for k, v in launches.items()},
+         "max_abs_err": held["serve"]["crop_resize"],
+         "max_abs_err_by_path": {k: v["crop_resize"] for k, v in held.items()
+                                 if "crop_resize" in v},
+         "shape": f"{align['frames']} x {align['crops']} crops of {align['out']} px "
+                  "(the align call)",
+         **{key: align[key] for key in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+         "per_step": {key: sum(r[key] for r in crop_time)
+                      for key in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms")},
+         "sites": crop_time},
     ]
 
 
@@ -3659,7 +3760,7 @@ def main() -> int:
             "device_busy_share_eager", "device_ms_per_step_eager", "capture_s", "memory",
             "kernels_held")}
         if path == "serve":
-            nms_time = stats["nms_time"]
+            nms_time, crop_time = stats["nms_time"], stats["crop_time"]
             served[path]["dispatch_demo"] = stats["dispatch_demo"]
         if "embed_alone" in stats:
             served[path]["embed_alone"] = stats["embed_alone"]
@@ -3743,7 +3844,7 @@ def main() -> int:
     held["demo"] = demo_stats["kernels_held"]
     print("demo: " + json.dumps(demo_stats | {"card": card}), flush=True)
     torch.cuda.empty_cache()
-    rows = kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time)
+    rows = kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time, crop_time)
     if "jax" in sys.modules:
         raise AssertionError("the run imported jax")
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)

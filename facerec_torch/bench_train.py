@@ -90,6 +90,8 @@ def _profiled(fn, n: int) -> dict[str, float]:
     lower bound."""
     from torch.profiler import ProfilerActivity, profile
 
+    from facerec_torch.utils import profiling
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -97,11 +99,7 @@ def _profiled(fn, n: int) -> dict[str, float]:
             fn(i)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    # the step's named parts (record_function) show on the device timeline
-    # too; their spans are not kernel time
-    busy_us = sum(e.self_device_time_total for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and not e.key.startswith("train_step."))
+    busy_us = sum(e.self_device_time_total for e in profiling.device_ops(prof))
     return {"device_ms": busy_us / n / 1e3, "busy_share": busy_us / wall_us}
 
 

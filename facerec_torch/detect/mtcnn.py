@@ -27,7 +27,7 @@ from facerec_torch import resolve_device
 from facerec_torch.ops.gallery import topk_stable
 from facerec_torch.ops.image import resize_bilinear
 from facerec_torch.ops.nms import nms
-from facerec_torch.ops.warp_fast import crop_resize_matmul_batched
+from facerec_torch.ops.crop_kernel import crop_resize_kernel
 
 
 def max_pool_ceil(x: torch.Tensor, window: int, stride: int) -> torch.Tensor:
@@ -375,9 +375,9 @@ class MTCNN(nn.Module):
             rs = self.rnet_crop_scale
             rh, rw = int(round(h * rs)), int(round(w * rs))
             xh = resize_bilinear(xn.float(), (rh, rw))
-            return crop_resize_matmul_batched(xh, boxes * _box_scale(rw / w, rh / h, boxes.device),
-                                              24, out_dtype=self.dtype)
-        return crop_resize_matmul_batched(xn, boxes, 24, out_dtype=self.dtype)
+            return crop_resize_kernel(xh, boxes * _box_scale(rw / w, rh / h, boxes.device), 24,
+                                      out_dtype=self.dtype)
+        return crop_resize_kernel(xn, boxes, 24, out_dtype=self.dtype)
 
     def _stages23(self, xn: torch.Tensor, boxes: torch.Tensor, valid: torch.Tensor
                   ) -> Detections:
@@ -405,7 +405,7 @@ class MTCNN(nn.Module):
 
         # ---- stage 3: O-Net ---------------------------------------------------
         ns = rk + self.K_LARGE
-        crops = crop_resize_matmul_batched(xn, boxes, 48, out_dtype=self.dtype)
+        crops = crop_resize_kernel(xn, boxes, 48, out_dtype=self.dtype)
         op, oreg, olmk = self.onet(crops.reshape(-1, 48, 48, 3))
         op = op.reshape(b, ns)
         oreg = oreg.reshape(b, ns, 4)

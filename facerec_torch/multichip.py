@@ -22,9 +22,9 @@ are stopped), and each rank runs, in one order:
     each, the committed MTCNN weights in bf16, a full-width ResNet-18
     ArcFace at 160 px in bf16 from seed 1, top 5. Each layout's step is
     captured and replayed; the replay must equal the eager mesh step, one
-    replay must launch K1 once, K2 once and the NMS kernel five times by
-    the profiler's kernel names, and each kernel must hold against its plain
-    version on the rank's own inputs. The results must agree with one
+    replay must launch K1 once, K2 once, the NMS kernel five times and the
+    crop kernel three times by the profiler's kernel names, and each kernel
+    must hold against its plain version on the rank's own inputs. The results must agree with one
     process on one card: (4, 1) each rank's valid slots and indices equal to
     one process's captured step on its 48 frames, embeddings within cosine
     ``COS_BAR``; (1, 4) and (2, 2) the merged top 5 equal to one process's
@@ -104,8 +104,9 @@ TIMED_STEPS = 20
 POOL = 3  # distinct train batches
 RANK_TIMEOUT_S = 900
 KERNEL_NAMES = {"gallery_topk": "topk_partial", "shear_rotate": "shear_rotate",
-                "nms_suppress": "nms_suppress"}
+                "nms_suppress": "nms_suppress", "crop_resize": "crop_resize"}
 NMS_SITES = ("per_scale", "cross_scale", "rnet", "large_face", "final")  # the detect's calls
+CROP_SITES = ("rnet", "onet", "align")  # the step's crop calls (the precise align takes none)
 # arcface_synth's configuration (outputs/checkpoints/arcface_synth) in the
 # command line's flags; the flags have no knob for its scheduler's 2 warm-up
 # epochs
@@ -330,23 +331,27 @@ def _rank_main(fn, rank: int, world: int, port: int, out: str, args) -> None:
 
 
 def zero_launches() -> None:
+    from facerec_torch.ops.crop_kernel import crop_resize_kernel
     from facerec_torch.ops.gallery import gallery_topk
     from facerec_torch.ops.nms import nms_suppress
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
     gallery_topk.launches = rotate_patches_kernel.launches = nms_suppress.launches = 0
+    crop_resize_kernel.launches = 0
 
 
 def launches() -> dict:
+    from facerec_torch.ops.crop_kernel import crop_resize_kernel
     from facerec_torch.ops.gallery import gallery_topk
     from facerec_torch.ops.nms import nms_suppress
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
     return {"gallery_topk": gallery_topk.launches, "shear_rotate": rotate_patches_kernel.launches,
-            "nms_suppress": nms_suppress.launches}
+            "nms_suppress": nms_suppress.launches, "crop_resize": crop_resize_kernel.launches}
 
 
-STEP_LAUNCHES = {"gallery_topk": 1, "shear_rotate": 1, "nms_suppress": len(NMS_SITES)}
+STEP_LAUNCHES = {"gallery_topk": 1, "shear_rotate": 1, "nms_suppress": len(NMS_SITES),
+                 "crop_resize": len(CROP_SITES)}
 
 
 def profiled(fn, calls: int = 3) -> dict:
@@ -356,6 +361,8 @@ def profiled(fn, calls: int = 3) -> dict:
     cost lengthens the wall)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from facerec_torch.utils import profiling
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -363,8 +370,7 @@ def profiled(fn, calls: int = 3) -> dict:
             fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA
-               and not e.key.startswith("train_step.")]
+    kernels = profiling.device_ops(prof)
     busy_us = sum(e.self_device_time_total for e in kernels)
     nccl_us = sum(e.self_device_time_total for e in kernels if "nccl" in e.key.lower())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
@@ -397,13 +403,61 @@ def record_nms(pipe, x) -> list:
     return calls
 
 
+def record_crops(pipe, x, r) -> list:
+    """The inputs (images, boxes, out size, out dtype) of each crop kernel
+    call of one eager detect of ``x`` by ``pipe``'s detector and of its
+    align of the step's result ``r``, in call order (``CROP_SITES``; the
+    precise align takes none); the launch counts stay as they were."""
+    from facerec_torch.detect import mtcnn
+    from facerec_torch.ops import crop_kernel
+    from facerec_torch.serve.pipeline import _kernel_wrappers
+
+    calls, kernel = [], crop_kernel.crop_resize_kernel
+    counts = [(f, f.launches) for f in _kernel_wrappers()]
+
+    def recording(images, boxes, out_size, out_dtype=torch.float32):
+        calls.append((images.clone(), boxes.clone(), out_size, out_dtype))
+        return kernel(images, boxes, out_size, out_dtype)
+
+    recording.launches = 0  # the wrapper counts on the name it is bound to
+    mtcnn.crop_resize_kernel = crop_kernel.crop_resize_kernel = recording
+    try:
+        with torch.no_grad():
+            pipe.detector.detect(x)
+            lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)
+            pipe.align(x, r.boxes, lm)
+    finally:
+        mtcnn.crop_resize_kernel = crop_kernel.crop_resize_kernel = kernel
+        for f, n in counts:
+            f.launches = n
+    return calls
+
+
+def hold_crops(pipe, x, r) -> list:
+    """The crop kernel against the matmul route, bit for bit, on each crop
+    call of the step on its own inputs (``record_crops``); the names of the
+    calls held. Raises where the count of calls or a value differs."""
+    from facerec_torch.ops.crop_kernel import crop_resize_kernel
+    from facerec_torch.ops.warp_fast import crop_resize_matmul_batched
+
+    calls = record_crops(pipe, x, r)
+    sites = CROP_SITES[:2] if pipe.precise_align else CROP_SITES
+    if len(calls) != len(sites):
+        raise AssertionError(f"the step made {len(calls)} crop calls, not {len(sites)}")
+    for site, args in zip(sites, calls):
+        if not torch.equal(crop_resize_kernel(*args), crop_resize_matmul_batched(*args)):
+            raise AssertionError(f"the crop kernel disagrees with the matmul route ({site})")
+    return list(sites)
+
+
 def hold_kernels(pipe, x: torch.Tensor, r) -> dict:
     """Each kernel of the step against its plain version on this rank's
     inputs: K1 on the step's embeddings against the rank's gallery rows and
     valid count (scores within ``SCORE_ATOL``, indices equal but for
     near-ties within it, masked slots equal), K2 bit for bit on the patches
     the step's boxes and landmarks give, the NMS kernel bit for bit (keep
-    and rounds) on each of its calls. Returns the max abs error of each and
+    and rounds) on each of its calls, the crop kernel bit for bit on each of
+    its calls (``hold_crops``). Returns the max abs error of each and
     the K1 near-tie slots; raises where one disagrees."""
     from facerec_torch.ops.gallery import gallery_topk, gallery_topk_plain
     from facerec_torch.ops.nms import nms_suppress, nms_suppress_plain
@@ -441,6 +495,8 @@ def hold_kernels(pipe, x: torch.Tensor, r) -> dict:
             raise AssertionError(f"the NMS kernel disagrees with its plain version ({site})")
         out["nms_rounds"][site] = [int(rounds.max()), rounds.float().mean().item()]
     out["nms_suppress"] = 0.0
+    hold_crops(pipe, x, r)
+    out["crop_resize"] = 0.0  # hold_crops raised on any differing value
 
     cfg = pipe.config
     lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)

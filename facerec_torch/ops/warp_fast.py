@@ -7,7 +7,10 @@ Counterpart of ``facerec_tpu/ops/warp_fast.py``, in its arithmetic:
     operands are rounded to bf16 and multiplied in f32 (the JAX version's
     ``preferred_element_type=f32``), and the row-pass intermediate stays f32
     until it is rounded for the second product. The Diag(cos, 1/cos) factor
-    of the rotation folds into the crop box.
+    of the rotation folds into the crop box. ``crop_resize_matmul_batched``
+    is the plain version of the CUDA kernel ``csrc/crop_resize.cu``
+    (``ops/crop_kernel.py``), which ``_align_prep`` and the detector's R-Net
+    and O-Net crops launch on CUDA tensors.
   Stage B: the remaining rotation as two shears (y, then x) of the bf16
     patch, each a coarse one-hot translate at granularity 8 and a 9-tap fine
     pass (``_shear``). ``rotate_patches`` is the plain version of the CUDA
@@ -156,6 +159,8 @@ def _align_prep(frames: torch.Tensor, boxes: torch.Tensor, landmarks: torch.Tens
     """Stage A for frames [B, H, W, C], boxes [B, F, 4], landmarks
     [B, F, 5, 2]: bf16 patches [B, F, P, P, C], eye angles [B, F] and
     rotation centres in patch coordinates [B, F, 2]."""
+    from facerec_torch.ops.crop_kernel import crop_resize_kernel
+
     x1, y1, x2, y2 = boxes.float().unbind(-1)
     bw = torch.clamp(x2 - x1, min=1.0)
     bh = torch.clamp(y2 - y1, min=1.0)
@@ -180,7 +185,7 @@ def _align_prep(frames: torch.Tensor, boxes: torch.Tensor, landmarks: torch.Tens
     dx1 = bx0 + sx * cp * (1.0 - cosp)
     dy1 = by0 + sy * cp * (1.0 - 1.0 / cosp)
     big_d = torch.stack([dx1, dy1, dx1 + cosp * (bx2 - bx0), dy1 + (by2 - by0) / cosp], dim=-1)
-    patches = crop_resize_matmul_batched(frames, big_d, p_size, out_dtype=torch.bfloat16)
+    patches = crop_resize_kernel(frames, big_d, p_size, out_dtype=torch.bfloat16)
     return patches, angle, centers
 
 

@@ -100,9 +100,10 @@ class _Captured(NamedTuple):
 def _kernel_wrappers() -> tuple:
     """The port's kernel wrappers, whose ``launches`` counts a replay
     advances by what its capture recorded."""
-    from facerec_torch.ops import gallery, nms, warp_kernel
+    from facerec_torch.ops import crop_kernel, gallery, nms, warp_kernel
 
-    return gallery.gallery_topk, warp_kernel.rotate_patches_kernel, nms.nms_suppress
+    return (gallery.gallery_topk, warp_kernel.rotate_patches_kernel, nms.nms_suppress,
+            crop_kernel.crop_resize_kernel)
 
 
 class FacePipeline:

@@ -606,6 +606,15 @@ def trace(log_dir: str | Path | None = None):
     prof.export_chrome_trace(str(d / "trace.json"))
 
 
+def device_ops(prof) -> list:
+    """The card's kernels and copies among a finished ``torch.profiler``
+    run's ``key_averages()``: its device-typed entries less the ranges
+    (every ``record_function``, this module's spans among them) that the
+    profiler also lays on the device timeline, which are not device time."""
+    return [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA and not e.is_user_annotation]
+
+
 def timed_call(fn: Callable, *args, iters: int = 10, salt_arg: int | None = 0) -> dict[str, float]:
     """Steady-state time of ``fn(*args)``. When ``salt_arg`` is an int, that
     positional argument (a tensor or float) has the call's index added to

@@ -14,13 +14,15 @@ from facerec_torch.config import ArcFaceConfig, OptimizerConfig, SchedulerConfig
 from facerec_torch.data.synthetic import write_synthetic_imagefolder
 from facerec_torch.models.arcface import build_embedder
 from facerec_torch.ops.arcface import cosine_logits
+from facerec_torch.ops.crop_kernel import crop_resize_kernel
 from facerec_torch.ops.gallery import (bf16_rows_per_split, bf16_splits, gallery_topk,
                                        gallery_topk_plain)
 from facerec_torch.ops.nms import MAX_N, MODES, nms_suppress, nms_suppress_plain, overlap_matrix
-from facerec_torch.ops.warp_fast import rotate_patches
+from facerec_torch.ops.warp_fast import crop_resize_matmul_batched, rotate_patches
 from facerec_torch.ops.warp_kernel import rotate_patches_kernel, rotate_patches_tiled
 from facerec_torch.serve.pipeline import WARMUP_RUNS
 from facerec_torch.train.engine import train_model
+from test_torch_crop_kernel import KINDS, SITES, _boxes, _frames, _same, crop_case
 
 pytestmark = pytest.mark.cuda
 
@@ -219,6 +221,138 @@ def test_rotate_kernel_empty_batch(dev):
     out = rotate_patches_kernel(torch.zeros(0, 208, 208, 3, device=dev), torch.zeros(0, device=dev),
                                 torch.zeros(0, 2, device=dev), 160)
     assert out.shape == (0, 160, 160, 3) and rotate_patches_kernel.launches == before
+
+
+def _crop_agrees(images, boxes, out, out_dtype):
+    """The crop kernel, one launch, against the matmul route on the card."""
+    before = crop_resize_kernel.launches
+    got = crop_resize_kernel(images, boxes, out, out_dtype)
+    ref = crop_resize_matmul_batched(images, boxes, out, out_dtype)
+    torch.cuda.synchronize()
+    assert crop_resize_kernel.launches == before + 1
+    assert got.dtype == ref.dtype == out_dtype and got.shape == ref.shape
+    return _same(got.float(), ref.float())
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", KINDS)
+@pytest.mark.parametrize("site", SITES, ids=[s[0] for s in SITES])
+def test_crop_kernel_matches_matmul_route(dev, site, kind, out_dtype):
+    images, boxes, out = crop_case(site, kind)
+    assert _crop_agrees(images.to(dev), boxes.to(dev), out, out_dtype)
+
+
+@pytest.mark.parametrize("site,n", [(SITES[0], 32), (SITES[1], 20), (SITES[2], 8)],
+                         ids=[s[0] for s in SITES])
+def test_crop_kernel_at_the_serve_shapes(dev, site, n):
+    """48 frames, the call's crops a frame, boxes of every kind mixed."""
+    import numpy as np
+
+    name, hw, dtype, out = site
+    rng = np.random.default_rng(n)
+    images = _frames(hw, dtype, name == "align", rng, b=48).to(dev)
+    boxes = torch.cat([_boxes(k, hw, out, rng, b=48, n=n) for k in KINDS[:5]], dim=1)
+    keep = torch.from_numpy(rng.permutation(boxes.shape[1])[:n])
+    assert _crop_agrees(images, boxes[:, keep].to(dev), out, torch.bfloat16)
+
+
+def test_crop_kernel_on_a_serve_batch(dev, no_tf32):
+    """The three calls' own inputs from the eager serve step at the
+    benchmark's settings (48 frames of 480 x 640, 8 faces each)."""
+    import numpy as np
+
+    from chip_smoke import build_pipeline
+    from facerec_torch.data.synthetic import face_frames
+    from facerec_torch.multichip import record_crops
+
+    pipe = build_pipeline(dev, (480, 640), 8, torch.bfloat16,
+                          dict(gallery_capacity=64, top_k=5, embed_size=160))
+    frames = face_frames(48, (480, 640), 8, np.random.default_rng(0)).astype(np.uint8)
+    x = pipe.upload(frames)
+    r = pipe.step(x)
+    calls = record_crops(pipe, x, r)
+    assert r.valid.sum().item() >= 100
+    assert [(c[0].shape[1:3], c[1].shape[1], c[2]) for c in calls] == [
+        ((288, 384), 32, 24), ((480, 640), 20, 48), ((480, 640), 8, 208)]
+    for images, boxes, out, out_dtype in calls:
+        assert _crop_agrees(images, boxes, out, out_dtype)
+
+
+@pytest.mark.parametrize("embedder", ["arcface", "facenet"])
+def test_replayed_step_matches_the_matmul_route(dev, no_tf32, monkeypatch, embedder):
+    """The replayed serve step at the benchmark's settings, packed result
+    and embeddings, equal to the same step with the matmul crops."""
+    import numpy as np
+
+    from chip_smoke import build_pipeline
+    from facerec_torch.data.synthetic import face_frames
+    from facerec_torch.detect import mtcnn
+    from facerec_torch.ops import crop_kernel
+
+    frames = face_frames(48, (480, 640), 8, np.random.default_rng(1)).astype(np.uint8)
+    gal = np.random.default_rng(2).normal(size=(64, 512)).astype(np.float32)
+
+    def run():
+        pipe = build_pipeline(dev, (480, 640), 8, torch.bfloat16,
+                              dict(gallery_capacity=64, top_k=5, embed_size=160),
+                              embedder=embedder)
+        pipe.gallery.add_many([f"id{i}" for i in range(64)], gal)
+        pipe.process_demo(frames)  # the capture, after its warm-up runs
+        before = crop_resize_kernel.launches
+        packed, emb = pipe.process_demo(frames)
+        return packed, emb.cpu(), crop_resize_kernel.launches - before
+
+    packed, emb, launched = run()
+
+    def matmul_route(images, boxes, out_size, out_dtype=torch.float32):
+        return crop_resize_matmul_batched(images, boxes, out_size, out_dtype)
+
+    matmul_route.launches = 0
+    monkeypatch.setattr(mtcnn, "crop_resize_kernel", matmul_route)
+    monkeypatch.setattr(crop_kernel, "crop_resize_kernel", matmul_route)
+    ref_packed, ref_emb, ref_launched = run()
+    assert (launched, ref_launched) == (3, 0)
+    assert (packed[..., 0] > 0).sum() >= 100
+    assert np.array_equal(packed, ref_packed) and torch.equal(emb, ref_emb)
+
+
+def test_crop_kernel_refuses(dev):
+    img = torch.zeros(2, 30, 40, 3, device=dev)
+    boxes = torch.zeros(2, 4, 4, device=dev)
+    with pytest.raises(ValueError, match="channels"):
+        crop_resize_kernel(torch.zeros(2, 30, 40, 5, device=dev), boxes, 16)
+    with pytest.raises(TypeError):
+        crop_resize_kernel(img.to(torch.uint8), boxes, 16)
+    with pytest.raises(TypeError):
+        crop_resize_kernel(img, boxes, 16, torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        crop_resize_kernel(img.permute(0, 2, 1, 3), boxes, 16)
+    with pytest.raises(ValueError):
+        crop_resize_kernel(img, boxes.cpu(), 16)
+    with pytest.raises(ValueError, match="16-byte"):  # 5 px of 3 channels
+        crop_resize_kernel(img, boxes, 5, torch.float32)
+    with pytest.raises(ValueError, match="16-byte"):  # 10 px of 2 channels
+        crop_resize_kernel(img[..., :2].contiguous(), boxes, 10, torch.bfloat16)
+
+
+@pytest.mark.parametrize("b,n", [(2, 0), (0, 3)])
+def test_crop_kernel_empty_batch(dev, b, n):
+    before = crop_resize_kernel.launches
+    got = crop_resize_kernel(torch.zeros(b, 30, 40, 3, device=dev),
+                             torch.zeros(b, n, 4, device=dev), 16, torch.bfloat16)
+    assert got.shape == (b, n, 16, 16, 3) and crop_resize_kernel.launches == before
+
+
+@pytest.mark.parametrize("ch,out", [(1, 24), (2, 24), (4, 48), (1, 8)])
+def test_crop_kernel_other_channels(dev, ch, out):
+    """Channel counts besides 3, down to one 16-byte vector a row."""
+    import numpy as np
+
+    rng = np.random.default_rng(ch)
+    images = torch.from_numpy(rng.uniform(0, 255, (2, 60, 80, ch)).astype(np.float32)).to(dev)
+    boxes = _boxes("straddling", (60, 80), out, rng).to(dev)
+    for out_dtype in (torch.float32, torch.bfloat16):
+        assert _crop_agrees(images, boxes, out, out_dtype)
 
 
 @pytest.fixture
@@ -607,17 +741,18 @@ def test_captured_step_matches_eager(dev, no_tf32, precise):
 
 def test_launches_per_replay(dev, no_tf32):
     """One replay adds what its capture recorded: K1 1, K2 1 (0 on the
-    precise path) and the NMS kernel 5."""
-    for precise, k2 in ((False, 1), (True, 0)):
+    precise path), the NMS kernel 5 and the crop kernel 3 (R-Net, O-Net and
+    align; 2 on the precise path, whose align gathers)."""
+    for precise, k2, crops in ((False, 1, 3), (True, 0, 2)):
         pipe = _tiny_pipeline(dev, precise)
         x = pipe.upload(_demo_frames())
         pipe.run_step(x)
         before = (gallery_topk.launches, rotate_patches_kernel.launches,
-                  nms_suppress.launches)
+                  nms_suppress.launches, crop_resize_kernel.launches)
         pipe.run_step(x)
         after = (gallery_topk.launches, rotate_patches_kernel.launches,
-                 nms_suppress.launches)
-        assert tuple(a - b for a, b in zip(after, before)) == (1, k2, 5)
+                 nms_suppress.launches, crop_resize_kernel.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == (1, k2, 5, crops)
 
 
 def test_two_dispatches_in_flight(dev, no_tf32):

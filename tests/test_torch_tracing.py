@@ -67,6 +67,16 @@ def test_a_profiler_sees_leaf_spans_as_ranges_with_tracing_off():
     assert profiling.snapshot() == {"spans": [], "counts": []}
 
 
+def test_device_ops_leave_out_the_ranges():
+    """The profiler keeps a span's range as a user annotation, which
+    ``device_ops`` does not count as device time (nothing is, on the CPU)."""
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with profiling.span("serve.decode"):
+            torch.ones(8).sum()
+    assert [e.key for e in prof.key_averages() if e.is_user_annotation] == ["serve.decode"]
+    assert profiling.device_ops(prof) == []
+
+
 def test_spans_carry_their_fields_and_self_time():
     profiling.enable()
     with profiling.request("job", kind="t"):
