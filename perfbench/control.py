@@ -24,9 +24,8 @@ import time
 
 import torch
 
-from perfbench import harness, weights
+from perfbench import embedders, harness, weights
 from perfbench.drivers import serve
-from perfbench.embedders import get as get_embedder
 from perfbench.judge_serve import merge
 from perfbench.judge_train import FAULTS
 from perfbench.reference import serve as ref_serve
@@ -40,7 +39,7 @@ def control_numbers(cell: dict, seed: int, device, precision: str = "fp8") -> di
     emb_c = config["embedder"]
     pool = serve.frame_pool(traffic, seed)
     trees = serve.detector_trees(config)
-    state = weights.make_state(get_embedder(emb_c["kind"]).shapes(emb_c), seed, device,
+    state = weights.make_state(embedders.get(emb_c["kind"]).shapes(emb_c), seed, device,
                                getattr(torch, config["dtype"]))
     judge = serve.reference_judge(cell, seed, device, state, trees)
     low = Precision(precision)
@@ -63,7 +62,7 @@ def train_control_numbers(cell: dict, seed: int, device, precision: str = "fp8",
 
     no_tf32()
     pool = train.host_pool(cell["traffic"], cell["config"], seed)
-    args = (cell["config"], cell["traffic"], seed, device, pool)
+    args = (train.kind(cell["config"]), cell["config"], cell["traffic"], seed, device, pool)
     p0, ref = judge_train.follow(*args)
     if fault:
         _, side = judge_train.follow(*args, fault=fault)

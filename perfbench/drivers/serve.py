@@ -30,8 +30,7 @@ import time
 import numpy as np
 import torch
 
-from perfbench import flops, harness, render, trace, weights
-from perfbench.embedders import get as get_embedder
+from perfbench import embedders, flops, harness, render, trace, weights
 from perfbench.judge_serve import ServeJudge, failed_request, merge
 from perfbench.reference import mtcnn as ref_mtcnn
 from perfbench.reference.match import Gallery
@@ -84,6 +83,15 @@ def row_of(name: str) -> int | None:
     return int(name[3:]) if name.startswith("id_") and name[3:].isdigit() else None
 
 
+def flops_per_request(config: dict, traffic: dict) -> int:
+    """The benchmark's FLOPs of one request (``flops.serve_flops``), the
+    embedder's from its kind's module."""
+    emb = config["embedder"]
+    return flops.serve_flops(
+        {**config, "detector": {**config["detector"], "frame_hw": traffic["frame_hw"]}},
+        traffic["batch"], traffic["enrolled"], embedders.get(emb["kind"]).macs(emb))
+
+
 def build(cell: dict, seed: int, device):
     """The port's pipeline for the cell, its gallery filled, and the
     benchmark's inputs: (pipeline, frame pool, embedder weights, detector
@@ -98,7 +106,7 @@ def build(cell: dict, seed: int, device):
     hw = tuple(traffic["frame_hw"])
     pool = frame_pool(traffic, seed)
     trees = detector_trees(config)
-    emb_mod = get_embedder(emb_c["kind"])
+    emb_mod = embedders.get(emb_c["kind"])
     state = weights.make_state(emb_mod.shapes(emb_c), seed, device, dtype)
     scfg = ServeConfig(max_faces=det_c["max_faces"], gallery_capacity=traffic["gallery_capacity"],
                        top_k=srv["top_k"], embed_size=emb_c["crop"],
@@ -215,7 +223,7 @@ def reference_judge(cell: dict, seed: int, device, state: dict, trees: dict) -> 
     no_tf32()
     config, traffic = cell["config"], cell["traffic"]
     emb_c = config["embedder"]
-    emb_mod = get_embedder(emb_c["kind"])
+    emb_mod = embedders.get(emb_c["kind"])
     gallery = Gallery(weights.gallery_rows(traffic["enrolled"], emb_c["embedding_dim"], seed,
                                            device))
     return ServeJudge(ref_mtcnn.weights_from_npz(trees, device), detector_spec(config, traffic),
@@ -242,6 +250,7 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, t0: float, device) 
     """One run; returns what the result line needs."""
     traffic, config = cell["traffic"], cell["config"]
     on_card = torch.device(device).type == "cuda"
+    request_flops = flops_per_request(config, traffic)  # an unknown kind fails here
     pipe, pool, state, trees = build(cell, seed, device)
     # the first request captures the step; the rest bring the host and the
     # card to the pace they keep through the window
@@ -261,14 +270,11 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, t0: float, device) 
            "frames_per_s": traffic["batch"] * (n - win.failed) / win.seconds,
            "latency_p95_ms": percentile(win.latencies, 95) * 1e3}
     ctx = {"spans": spans, "window": {"requests": n, "seconds": win.seconds},
-           "config": config, "traffic": traffic, "chips": 1}
+           "config": config, "traffic": traffic, "chips": 1, "flops_per_request": request_flops}
     if traced and on_card:
         ctx["profile"] = trace.profile(lambda j: send(pipe, pool, n + j),
                                        traffic["profiled_requests"])
         ctx["stages_ms"] = stage_ms(pipe, pool[0], traffic["stage_reps"])
-        ctx["flops_per_request"] = flops.serve_flops(
-            {**config, "detector": {**config["detector"], "frame_hw": traffic["frame_hw"]}},
-            traffic["batch"], traffic["enrolled"])
     out["ctx"] = ctx
     out["memory_peak_bytes"] = torch.cuda.max_memory_allocated() if on_card else 0
     answers = win.sample

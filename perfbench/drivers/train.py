@@ -1,18 +1,20 @@
 """Train traffic: the train step ``train_model`` runs
 (``make_train_step``, a replayed CUDA graph on the card), fed by
 ``prefetch_to_device`` from a pool of host batches, as many steps as the
-window holds.
+window holds. The model is the configuration's embedder, trained as its
+kind's module says (``embedders``); the optimizer is the configuration's
+``train.optimizer``.
 
 Set-up draws the pool from the seed (f32 images [B, S, S, 3] as the
 datasets yield them, labels over the configuration's classes), makes the
 model's weights on the card from the seed, builds the port's train state
 and step on them, and drives that same state through the first
 ``check_steps`` steps of the window's own call and feed, on distinct
-batches: their losses, the first gradient as Adam holds it (its first
-moment over 1 - beta1) and the parameters after the last of them are kept
-for the comparison. The window then runs step after step on the same
-state; its rate counts every image of every step, the device synchronised
-at the close.
+batches: their losses, the first gradient as the optimizer holds it
+(Adam's first moment over 1 - beta1, SGD's momentum trace) and the
+parameters after the last of them are kept for the comparison. The
+window then runs step after step on the same state; its rate counts every
+image of every step, the device synchronised at the close.
 
 With ``trace``, a span is recorded around each ``next()`` on the feed, and
 after the window a few steps run under the profiler.
@@ -40,9 +42,9 @@ import time
 import numpy as np
 import torch
 
-from perfbench import flops, harness, trace, weights
+from perfbench import embedders, harness, trace, weights
 from perfbench.judge_train import judge
-from perfbench.reference import train_arcface
+from perfbench.reference import optim
 from perfbench.reference.precision import no_tf32
 
 STOP_EVERY = 16  # steps between the ranks' checks of the window's close
@@ -66,40 +68,44 @@ def feed(pool):
         i += 1
 
 
-def model_state(config: dict, seed: int, device) -> dict[str, torch.Tensor]:
-    """The model's weights (f32, the parameters' type) from the seed."""
-    t = config["train"]
-    return weights.make_state(train_arcface.param_shapes(t["embedding_dim"], t["num_classes"]),
-                              seed, device, torch.float32)
+def kind(config: dict):
+    """The module of the configuration's embedder kind, with what training
+    needs of it; the optimizer checked. An unknown or untrained kind, or an
+    unknown optimizer, fails here, at set-up, naming it."""
+    optim.check(config["train"]["optimizer"])
+    return embedders.get(config["embedder"]["kind"], train=True)
 
 
-def build(cell: dict, seed: int, device, mesh=None):
+def model_state(arch, t: dict, seed: int, device) -> dict[str, torch.Tensor]:
+    """The weights (f32, the parameters' type) of the model that ``arch``,
+    the kind's module, trains on the ``train`` section ``t``, from the seed."""
+    return weights.make_state(arch.train_shapes(t), seed, device, torch.float32)
+
+
+def flops_per_image(arch, t: dict, traffic: dict) -> int:
+    """The benchmark's FLOPs of one training image: 3 x the forward count
+    (its kind's ``train_macs``), a multiply-add 2."""
+    return 3 * 2 * arch.train_macs(t, traffic["image"])
+
+
+def build(cell: dict, arch, seed: int, device, mesh=None):
     """(train state, train step) of the port, on the benchmark's weights;
     with ``mesh``, sharded over it."""
-    from facerec_torch.config import OptimizerConfig, TrainConfig
-    from facerec_torch.models import get_model
-    from facerec_torch.train.state import create_train_state
-    from facerec_torch.train.steps import make_train_step
+    from facerec_torch.config import OptimizerConfig
 
     t = cell["config"]["train"]
     o = t["optimizer"]
-    model = get_model("arcface", num_classes=t["num_classes"], dropout_rate=t["dropout"],
-                      arcface_kwargs={"margin": t["margin"], "scale": t["scale"],
-                                      "warmup_epochs": t["warmup_epochs"]})
-    cfg = TrainConfig(model_type="arcface", batch_size=cell["traffic"]["batch"],
-                      num_classes=t["num_classes"], seed=dropout_seed(seed),
-                      compute_dtype=t["compute_dtype"],
-                      optimizer=OptimizerConfig(name=o["name"], learning_rate=o["learning_rate"],
-                                                beta1=o["beta1"], beta2=o["beta2"],
-                                                grad_clip_norm=o["clip_norm"]))
-    state = create_train_state(model, cfg, "arcface", torch.device(device))
+    keys = {k: o[k] for k in optim.check(o).KEYS if k != "clip_norm"}
+    opt = OptimizerConfig(name=o["name"], grad_clip_norm=o["clip_norm"], **keys)
+    state, step = arch.train_program(t, opt, cell["traffic"]["batch"], dropout_seed(seed), device,
+                                     mesh)
     with torch.no_grad():
-        state.model.load_state_dict(model_state(cell["config"], seed, device))
+        state.model.load_state_dict(model_state(arch, t, seed, device))
     if mesh is not None:
         from facerec_torch.parallel.mesh import shard_params
 
         shard_params(state.model, mesh)
-    return state, make_train_step("arcface", t["compute_dtype"], mesh)
+    return state, step
 
 
 def dropout_seed(seed: int) -> int:
@@ -151,9 +157,11 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, t0: float, device,
     if mesh is not None:
         device = mesh.device
     on_card = torch.device(device).type == "cuda"
-    no_tf32()  # as train_model sets it: the ArcFace cosine product is full f32
+    no_tf32()  # as train_model sets it: the margin head's cosine product is full f32
+    arch = kind(config)  # an unknown kind or optimizer fails here
+    image_flops = flops_per_image(arch, config["train"], traffic)
     pool = host_pool(traffic, config, seed)
-    state, step = build(cell, seed, device, mesh)
+    state, step = build(cell, arch, seed, device, mesh)
     spans = trace.Spans()
     it = prefetch_to_device(feed(pool), device=device, mesh=mesh)
     next_batch = spans.wrap("train.input_wait", it.__next__) if traced else it.__next__
@@ -165,10 +173,10 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, t0: float, device,
     opt = config["train"]["optimizer"]
     for k in range(traffic["check_steps"]):
         metrics.append(step(state, next_batch()))
-        if k == 0:  # Adam's first moment is (1 - beta1) x the clipped gradient
+        if k == 0:
             unclip = torch.clamp(metrics[0]["grad_norm"].float() / opt["clip_norm"], min=1.0)
-            first["grad"] = {n: m.detach().float() / (1.0 - opt["beta1"]) * unclip
-                             for n, m in zip(names, state.opt_state.slots["mu"])}
+            grads = optim.check(opt).first_gradient(state.opt_state.slots, opt)
+            first["grad"] = {n: g * unclip for n, g in zip(names, grads)}
     first["params"] = _params(state)
     first["losses"] = [float(m["loss_sum"] / torch.clamp(m["count"], min=1.0)) for m in metrics]
     first["grad_norms"] = [float(m["grad_norm"]) for m in metrics]
@@ -181,7 +189,8 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, t0: float, device,
     out = {"attempted": n, "failed": 0, "setup_s": setup_s,
            "train_images_per_s": images / window_s}
     ctx = {"spans": spans, "window": {"steps": n, "seconds": window_s, "images": images},
-           "config": config, "traffic": traffic, "chips": traffic.get("ranks", 1)}
+           "config": config, "traffic": traffic, "chips": traffic.get("ranks", 1),
+           "flops_per_image": image_flops}
     if traced and on_card:
         align = None
         if mesh is not None:
@@ -190,9 +199,6 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, t0: float, device,
             align = dist.barrier
         ctx["profile"] = trace.profile(lambda j: step(state, it.__next__()),
                                        traffic["profiled_steps"], align)
-        t = config["train"]
-        ctx["flops_per_image"] = 3 * 2 * flops.resnet18_macs(
-            traffic["image"], t["width"], embedding_dim=t["embedding_dim"])
     out["ctx"] = ctx
     out["memory_peak_bytes"] = torch.cuda.max_memory_allocated(device) if on_card else 0
     it.close()
@@ -207,7 +213,7 @@ def run(cell: dict, seed: int, seconds: float, traced: bool, t0: float, device,
         if mesh.rank != 0:
             return out
     c0 = time.perf_counter()
-    out["numbers"] = judge(config, traffic, seed, device, pool, p0, first)
+    out["numbers"] = judge(arch, config, traffic, seed, device, pool, p0, first)
     out["check_s"] = time.perf_counter() - c0
     return out
 
@@ -301,6 +307,7 @@ def spawn(cell: dict, seeds: list[int], seconds: float, traced: bool, t0: float,
 
 def main(cell: dict, seed: int, seconds: float, traced: bool, t0: float) -> int:
     if cell["traffic"].get("ranks", 1) > 1:
+        kind(cell["config"])  # before any rank starts
         out = spawn(cell, [seed], seconds, traced, t0)[seed]
     else:
         out = run(cell, seed, seconds, traced, t0, "cuda")

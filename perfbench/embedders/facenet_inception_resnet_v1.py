@@ -1,10 +1,11 @@
 """InceptionResnetV1 (FaceNet) at facenet-pytorch's VGGFace2 widths,
-repeats (5, 10, 5), a 512-d embedding."""
+repeats (5, 10, 5), a 512-d embedding. Served only: no training."""
 
 from __future__ import annotations
 
 import torch
 
+from perfbench import flops
 from perfbench.reference import facenet
 
 
@@ -21,3 +22,7 @@ def program(state: dict, emb: dict, device, dtype=torch.bfloat16):
 
 def reference(p, state: dict, crops: torch.Tensor) -> torch.Tensor:
     return facenet.embed(p, state, crops)
+
+
+def macs(emb: dict) -> int:
+    return flops.inception_resnet_v1_macs(emb["crop"], tuple(emb["repeats"]), emb["embedding_dim"])

@@ -6,7 +6,11 @@ implements the layers.
 A multiply-add counts as 2 FLOPs; ``*_macs`` functions count multiply-adds.
 Only convolutions and dense layers are counted (their products are where
 the operations are); BatchNorm, activations, pooling and the align's
-resampling products are not."""
+resampling products are not. An embedder kind's module
+(``embedders/<kind>.py``) gives its own count (``macs``, ``train_macs``):
+the two kinds here call their counting functions below, and a new kind
+computes its count in its own module from ``conv_out`` and ``conv_macs``,
+without an edit to this file."""
 
 from __future__ import annotations
 
@@ -86,14 +90,6 @@ def inception_resnet_v1_macs(size: int = 160, repeats=(5, 10, 5), embedding_dim:
     return macs + 1792 * embedding_dim
 
 
-EMBEDDER_MACS = {
-    "arcface_resnet18": lambda e: resnet18_macs(e["crop"], e["width"],
-                                                embedding_dim=e["embedding_dim"]),
-    "facenet_inception_resnet_v1": lambda e: inception_resnet_v1_macs(
-        e["crop"], tuple(e["repeats"]), e["embedding_dim"]),
-}
-
-
 # ---------------------------------------------------------------- MTCNN
 def pnet_macs(h: int, w: int) -> int:
     """P-Net, fully convolutional over an h x w level."""
@@ -139,13 +135,13 @@ def mtcnn_macs(det: dict) -> int:
     return macs + det["k_rnet"] * RNET_MACS + (rnet_keep + 4) * ONET_MACS
 
 
-def serve_flops(config: dict, batch: int, enrolled: int) -> int:
+def serve_flops(config: dict, batch: int, enrolled: int, embedder_macs: int) -> int:
     """FLOPs one serve batch needs: MTCNN on every frame, the embedder on
-    every slot, the gallery product of every slot against the enrolled
-    rows."""
+    every slot (``embedder_macs`` a crop, its kind's count), the gallery
+    product of every slot against the enrolled rows."""
     det, emb = config["detector"], config["embedder"]
     slots = batch * det["max_faces"]
-    macs = (batch * mtcnn_macs(det) + slots * EMBEDDER_MACS[emb["kind"]](emb)
+    macs = (batch * mtcnn_macs(det) + slots * embedder_macs
             + slots * enrolled * emb["embedding_dim"])
     return 2 * macs
 

@@ -7,7 +7,23 @@ configuration's file, as ``BENCHMARK.json`` names it) and
 ``drivers/`` that runs it. The limits of the cell's comparison are
 ``limits/<cell>.json``. A per-layer metric is ``metrics/<name>.py``, whose
 ``read(ctx)`` returns its value or None where the run has nothing for it
-to read."""
+to read.
+
+The architecture is the configuration's ``embedder.kind``, a module
+``embedders/<kind>.py``. For serving it gives the served model's leaves
+(``shapes``), the port's embedder (``program``), the reference's forward
+pass (``reference``) and the count of one crop (``macs``); a kind that
+trains also gives the trained model's leaves and trainable names
+(``train_shapes``, ``train_param_names``), the port's train state and step
+(``train_program``), the reference's loss and BatchNorm running update
+(``train_loss``, ``update_running``) and the count of one training image
+(``train_macs``). The optimizer is the configuration's, by name, in
+``reference/optim.py``. So a new architecture adds files and edits none:
+``embedders/<kind>.py``, ``reference/<arch>.py``, ``configs/<config>.json``,
+``limits/<cell>.json``, ``traffic/<mix>.json`` where the mix is new,
+``metrics/<name>.py`` for a new metric, and its entries in
+``BENCHMARK.json``, the cell's name appended to each metric's ``workloads``
+list."""
 
 from __future__ import annotations
 

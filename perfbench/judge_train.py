@@ -1,7 +1,9 @@
 """The comparison that decides ``correct`` in a train cell: the program's
 first steps, which the window's own call and feed drove, against the plain
-reference (``reference/train_arcface.py``) following the same steps from
-the same weights, batches and dropout draws.
+reference following the same steps from the same weights, batches and
+dropout draws: the loss and the BatchNorm running update of the embedder
+kind's module (``embedders/<kind>.py``, which points at its reference), the
+optimizer the configuration names (``reference/optim.py``).
 
 A leaf's gap is the gap between the program's norm of the leaf and the
 reference's, over the larger of the reference's norm of that leaf and of
@@ -12,7 +14,8 @@ the median leaf. The numbers:
 * ``grad_norm_gap_first``: the relative gap of the first step's global
   gradient norm before the clip (the step's own ``grad_norm``).
 * ``grad_gap_median``: the first gradient as the optimizer gets it (before
-  the clip: Adam's first moment over 1 - beta1, times the clip's factor,
+  the clip: Adam's first moment over 1 - beta1, or SGD's momentum trace,
+  which after one step is the clipped gradient, times the clip's factor,
   the step's ``grad_norm`` over the clip norm where that is over 1), the
   median leaf's gap (``grad_gap``: the worst leaf's).
 * ``change_gap_median``: the parameters' change over the steps, the median
@@ -21,24 +24,28 @@ the median leaf. The numbers:
   steps (the batch's, over every rank's slice of it, mixed in at 0.1 a
   step), the median buffer's gap (``stats_gap``: the worst buffer's).
 
-The worst leaf is a BatchNorm scale or shift on every seed: its gradient
-is a sum over the batch and the pixels that cancels, and bf16 rounding
-moves its norm by 5-17% of the median leaf's; the later steps' losses
-carry the first steps' rounding through Adam. So the first loss and the
-median leaf are compared, and the widest are read.
+In the ResNet-18 cells under Adam the worst leaf is a BatchNorm scale or
+shift on every seed: its gradient is a sum over the batch and the pixels
+that cancels, and bf16 rounding moves its norm by 5-17% of the median
+leaf's; the later steps' losses carry the first steps' rounding through
+the optimizer. So the first loss and the median leaf are compared, and the
+widest are read.
 
 Leaves whose reference gradient is under a thousandth of the median
-leaf's move under Adam by round-off alone and are left out of both leaf
+leaf's move by round-off alone (Adam scales every leaf's step to about the
+learning rate, whatever its gradient) and are left out of both leaf
 numbers (``SILENT``); the rule reads the reference's gradient, not names.
 The dropout draws follow the configuration's rule: step k draws from a
-generator on the device seeded to seed x 1,000,003 + k."""
+generator on the device seeded to seed x 1,000,003 + k, one mask of
+``embedding_dim`` an example, which ArcFace's head applies to the
+embedding after its BatchNorm."""
 
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from perfbench.reference import train_arcface
+from perfbench.reference import optim
 from perfbench.reference.precision import Precision
 
 SILENT = 1e-3
@@ -50,23 +57,23 @@ RUNNING = ("running_mean", "running_var")
 FAULTS = ("half_batch", "no_exchange")
 
 
-def follow(config: dict, traffic: dict, seed: int, device, pool, precision: str = "f32",
+def follow(arch, config: dict, traffic: dict, seed: int, device, pool, precision: str = "f32",
            fault: str = "") -> tuple[dict, dict]:
-    """The reference's first steps: (p0, {"losses", "grad", "params"}).
-    ``fault`` plants one: ``half_batch``, the loss the mean over the first
+    """The reference's first steps of the model that ``arch``, the kind's
+    module, trains: (p0, {"losses", "grad", "params"}). ``fault`` plants one: ``half_batch``, the loss the mean over the first
     half of each batch only; ``no_exchange``, each step rank 0's alone, on
     its slice of the batch (its own BatchNorm statistics, no gradient
     sum over the ranks)."""
     from perfbench.drivers.train import dropout_seed, model_state
 
     t = config["train"]
-    w = model_state(config, seed, device)
-    names = train_arcface.param_names(t["embedding_dim"], t["num_classes"])
+    w = model_state(arch, t, seed, device)
+    names = arch.train_param_names(t)
     params = [w[n].clone().requires_grad_(True) for n in names]
     running = {n: v.clone() for n, v in w.items() if n.rsplit(".", 1)[-1] in RUNNING}
     p0 = {n: q.detach().clone() for n, q in zip(names, params)}
     p0.update({n: v.clone() for n, v in running.items()})
-    opt = train_arcface.Adam(params, t["optimizer"])
+    opt = optim.make(params, t["optimizer"])
     p = Precision(precision)
     out = {"losses": [], "grad_norms": [], "grad": None}
     dseed = dropout_seed(seed)
@@ -85,9 +92,9 @@ def follow(config: dict, traffic: dict, seed: int, device, pool, precision: str 
             mask = torch.zeros(images.shape[0], device=device)
             mask[: images.shape[0] // 2] = 1.0
         stats: dict = {}
-        loss = train_arcface.loss(p, dict(zip(names, params)), images, labels, keep, t,
-                                  mask=mask, stats=stats)
-        train_arcface.update_running(running, stats)
+        loss = arch.train_loss(p, dict(zip(names, params)), images, labels, keep, t,
+                               mask=mask, stats=stats)
+        arch.update_running(running, stats)
         grads = torch.autograd.grad(loss, params)
         out["grad_norms"].append(float(opt.step(params, list(grads))))
         out["losses"].append(float(loss.detach()))
@@ -134,10 +141,10 @@ def compare(p0: dict, prog: dict, ref: dict) -> dict[str, float]:
     return out
 
 
-def judge(config: dict, traffic: dict, seed: int, device, pool, p0_prog: dict,
+def judge(arch, config: dict, traffic: dict, seed: int, device, pool, p0_prog: dict,
           prog: dict) -> dict[str, float]:
     """The program's first steps against the reference's."""
-    p0, ref = follow(config, traffic, seed, device, pool)
+    p0, ref = follow(arch, config, traffic, seed, device, pool)
     for n, v in p0.items():  # both sides start from the benchmark's weights
         if not torch.equal(v, p0_prog[n].to(v.device).float()):
             return {k: float("nan") for k in NUMBERS}

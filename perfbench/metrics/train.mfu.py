@@ -1,7 +1,7 @@
 """train.mfu: the train step's share of the cards' bf16 peak, %: 3 x the
-forward FLOPs of the model an image (``flops.resnet18_macs``, the
-benchmark's own count) x the window's images, over the window's seconds x
-the cards x 989 TFLOP/s."""
+forward FLOPs of the model an image (the embedder kind's ``train_macs``,
+the benchmark's own count) x the window's images, over the window's
+seconds x the cards x 989 TFLOP/s."""
 
 from perfbench import flops
 

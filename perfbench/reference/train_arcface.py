@@ -2,9 +2,13 @@
 train-mode BatchNorm over the batch (biased variance), the 512-d embedding,
 dropout, L2 normalisation, the additive angular margin logits against the
 class centres with the progressive margin and scale of the configuration,
-cross-entropy with label smoothing, the gradients, clipping to a global
-norm, and Adam. All in f32 (``Precision`` rounds the products' operands
-for the control)."""
+cross-entropy with label smoothing (the clip and the optimizer are
+``optim``'s). All in f32 (``Precision`` rounds the products' operands for
+the control).
+
+``conv_bn``, ``bn_train``, ``update_running`` and ``margin_loss`` (the head
+over a trunk's pooled features) serve any trunk trained with ArcFace's
+head."""
 
 from __future__ import annotations
 
@@ -18,9 +22,8 @@ from perfbench.reference.resnet import param_shapes
 
 BUFFERS = ("running_mean", "running_var", "num_batches_tracked")
 # fixed in the port, not set by a configuration: the ArcFace loss's label
-# smoothing (its loss table) and Adam's eps (optax's)
+# smoothing (its loss table)
 LABEL_SMOOTHING = 0.05
-ADAM_EPS = 1e-8
 
 
 def param_names(embedding_dim: int = 512, num_classes: int = 18) -> list[str]:
@@ -29,7 +32,7 @@ def param_names(embedding_dim: int = 512, num_classes: int = 18) -> list[str]:
             if n.rsplit(".", 1)[-1] not in BUFFERS]
 
 
-def _bn_train(x, w, prefix, stats, eps=1e-5):
+def bn_train(x, w, prefix, stats, eps=1e-5):
     """BatchNorm over the batch; the batch's mean and biased variance go to
     ``stats[prefix]``."""
     dims = [0, *range(2, x.ndim)]
@@ -41,18 +44,18 @@ def _bn_train(x, w, prefix, stats, eps=1e-5):
     return y * w[f"{prefix}.weight"].view(shape) + w[f"{prefix}.bias"].view(shape)
 
 
-def _conv_bn(p, x, w, conv, bn, st, stride=1, padding=0):
+def conv_bn(p, x, w, conv, bn, st, stride=1, padding=0):
     """Convolution, then train-mode BatchNorm, each output held in the
     compute precision."""
     y = p.act(p.conv2d(x, w[conv], stride=stride, padding=padding))
-    return p.act(_bn_train(y, w, bn, st))
+    return p.act(bn_train(y, w, bn, st))
 
 
 def _block(p, w, x, prefix, stride, st):
-    y = F.relu(_conv_bn(p, x, w, f"{prefix}.conv1.weight", f"{prefix}.bn1", st, stride, 1))
-    y = _conv_bn(p, y, w, f"{prefix}.conv2.weight", f"{prefix}.bn2", st, 1, 1)
+    y = F.relu(conv_bn(p, x, w, f"{prefix}.conv1.weight", f"{prefix}.bn1", st, stride, 1))
+    y = conv_bn(p, y, w, f"{prefix}.conv2.weight", f"{prefix}.bn2", st, 1, 1)
     if f"{prefix}.downsample.0.weight" in w:
-        x = _conv_bn(p, x, w, f"{prefix}.downsample.0.weight", f"{prefix}.downsample.1", st,
+        x = conv_bn(p, x, w, f"{prefix}.downsample.0.weight", f"{prefix}.downsample.1", st,
                      stride)
     return F.relu(y + x)
 
@@ -88,13 +91,24 @@ def loss(p: Precision, w: dict, images: torch.Tensor, labels: torch.Tensor,
     BatchNorm's batch statistics go to ``stats``."""
     st = {} if stats is None else stats
     x = p.act(images.float().permute(0, 3, 1, 2))
-    x = F.relu(_conv_bn(p, x, w, "backbone.conv1.weight", "backbone.bn1", st, 2, 3))
+    x = F.relu(conv_bn(p, x, w, "backbone.conv1.weight", "backbone.bn1", st, 2, 3))
     x = F.max_pool2d(x, 3, 2, padding=1)
     for li in range(1, 5):
         x = _block(p, w, x, f"backbone.layer{li}.0", 1 if li == 1 else 2, st)
         x = _block(p, w, x, f"backbone.layer{li}.1", 1, st)
-    x = p.act(p.linear(x.mean(dim=(2, 3)), w["embedding.weight"]))
-    x = p.act(_bn_train(x, w, "bn", st))
+    return margin_loss(p, w, x.mean(dim=(2, 3)), labels, keep, train, epoch, mask, st)
+
+
+def margin_loss(p: Precision, w: dict, pooled: torch.Tensor, labels: torch.Tensor,
+                keep: torch.Tensor, train: dict, epoch: float = 0.0,
+                mask: torch.Tensor | None = None, stats: dict | None = None) -> torch.Tensor:
+    """ArcFace's head over a trunk's pooled features [B, F]: the projection
+    ``embedding``, BatchNorm ``bn``, dropout (``keep``), L2 normalisation,
+    the margin logits against ``arc_weight`` and the smoothed
+    cross-entropy; the batch's mean loss (over ``mask``'s rows)."""
+    st = {} if stats is None else stats
+    x = p.act(p.linear(pooled, w["embedding.weight"]))
+    x = p.act(bn_train(x, w, "bn", st))
     rate = train["dropout"]
     x = torch.where(keep, x / (1.0 - rate), 0.0)
     x = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
@@ -112,31 +126,3 @@ def loss(p: Precision, w: dict, images: torch.Tensor, labels: torch.Tensor,
         return per.mean()
     return (per * mask).sum() / torch.clamp(mask.sum(), min=1.0)
 
-
-class Adam:
-    """Adam with the gradients clipped to a global norm first."""
-
-    def __init__(self, params: list[torch.Tensor], opt: dict):
-        self.opt = opt
-        self.mu = [torch.zeros_like(q) for q in params]
-        self.nu = [torch.zeros_like(q) for q in params]
-        self.t = 0
-
-    @torch.no_grad()
-    def step(self, params: list[torch.Tensor], grads: list[torch.Tensor]) -> torch.Tensor:
-        """Update ``params`` in place; returns the global norm of the
-        gradients before the clip."""
-        o = self.opt
-        grads = [torch.nan_to_num(g, 0.0, 0.0, 0.0) for g in grads]
-        norm = torch.sqrt(sum((g.double() ** 2).sum() for g in grads)).float()
-        unclipped = norm.clone()
-        if norm >= o["clip_norm"]:
-            grads = [g / norm * o["clip_norm"] for g in grads]
-        self.t += 1
-        b1, b2 = o["beta1"], o["beta2"]
-        for q, g, m, v in zip(params, grads, self.mu, self.nu):
-            m.mul_(b1).add_(g, alpha=1.0 - b1)
-            v.mul_(b2).addcmul_(g, g, value=1.0 - b2)
-            upd = (m / (1.0 - b1 ** self.t)) / (torch.sqrt(v / (1.0 - b2 ** self.t)) + ADAM_EPS)
-            q.sub_(o["learning_rate"] * upd)
-        return unclipped

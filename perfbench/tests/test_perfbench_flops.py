@@ -5,7 +5,7 @@ from __future__ import annotations
 import pytest
 import torch
 
-from perfbench import flops
+from perfbench import embedders, flops
 from perfbench.reference import facenet, mtcnn, resnet
 from perfbench.reference.precision import Precision
 
@@ -83,7 +83,8 @@ def test_serve_flops_adds_the_three_parts():
     det = {"frame_hw": (480, 640), "min_face_size": 40, "max_faces": 8, "k_pnet": 64,
            "k_rnet": 32}
     emb = {"kind": "arcface_resnet18", "crop": 160, "width": 64, "embedding_dim": 512}
-    f = flops.serve_flops({"detector": det, "embedder": emb}, 48, 1_000_000)
+    f = flops.serve_flops({"detector": det, "embedder": emb}, 48, 1_000_000,
+                          embedders.get(emb["kind"]).macs(emb))
     assert f == 2 * (48 * flops.mtcnn_macs(det) + 384 * flops.resnet18_macs(160, 64, 0, 512)
                      + 384 * 1_000_000 * 512)
     assert flops.pyramid(480, 640, 40)[0] == (144, 192)

@@ -4,9 +4,12 @@ program and to the reference.
 
 Every parameter is one slice of one normal draw, scaled by a rule of its
 kind: convolution and dense kernels LeCun-normal (deviation 1 / sqrt(fan
-in)), then made zero-mean over each output's fan-in; BatchNorm scales
-1 + 0.1 z and running variances exp(0.2 z); BatchNorm shifts, running
-means, other biases and the BatchNorm step counters 0.
+in)), then made zero-mean over each output's fan-in; PReLU slopes (a 1-D
+``weight`` of a module named ``prelu`` or ``prelu<N>``) 0.25 + 0.05 z,
+about ``nn.PReLU``'s initial 0.25, so that no slope comes near 1, where
+the PReLU would be the identity; other 1-D ``weight`` leaves, BatchNorm
+scales, 1 + 0.1 z and running variances exp(0.2 z); BatchNorm shifts,
+running means, other biases and the BatchNorm step counters 0.
 
 The zero means and zero shifts keep a random net's embeddings of different
 faces apart: with LeCun kernels alone the common part of the (positive)
@@ -15,11 +18,14 @@ activations dominates, and every face of a frame embeds within a cosine of
 
 from __future__ import annotations
 
+import re
+
 import numpy as np
 import torch
 
 # keys of the seed sequence, one a purpose, so that each draw is its own
 PURPOSES = ("frames", "embedder", "gallery", "sample", "train_data", "train_model")
+PRELU = re.compile(r"prelu\d*")  # the module names of PReLUs (MTCNN's, insightface's IResNet)
 
 
 def sub_seed(seed: int, purpose: str) -> int:
@@ -34,11 +40,13 @@ def generator(seed: int, purpose: str, device) -> torch.Generator:
 
 def _rule(name: str, shape: tuple) -> tuple[float, float, bool]:
     """(scale, shift, exponentiate) of a parameter's slice of the draw."""
-    leaf = name.rsplit(".", 1)[-1]
+    module, _, leaf = name.rpartition(".")
     if len(shape) >= 2:
         return float(np.prod(shape[1:])) ** -0.5, 0.0, False
     if leaf == "running_var":
         return 0.2, 0.0, True
+    if leaf == "weight" and PRELU.fullmatch(module.rsplit(".", 1)[-1]):  # a PReLU slope
+        return 0.05, 0.25, False
     if leaf == "weight":  # a BatchNorm scale
         return 0.1, 1.0, False
     return 0.0, 0.0, False  # shifts, running means, biases
