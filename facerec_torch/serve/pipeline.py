@@ -18,8 +18,9 @@ two eager warm-up runs on a side stream; a capture that fails raises. The
 frames are copied into the graph's static input and its outputs copied out,
 both in stream order, so every call returns buffers of its own, which no
 later replay overwrites, and returns before the card has finished them
-(``upload`` stages frames in pinned memory, so the copy to the card does
-not wait for earlier work either): ``dispatch_demo`` lets the demo
+(``upload``'s copy to the card does not wait for earlier work either: it
+runs from pinned memory, on its own stream for a reused host buffer,
+``serve/host_frames.py``): ``dispatch_demo`` lets the demo
 dispatch frame N + 1 before it reads frame N back. The graph reads the detector's and embedder's weights and the
 gallery's ``embeddings`` and count in place, so an enrolment or a removal
 between replays is seen by the next one; replacing the gallery, the
@@ -69,6 +70,7 @@ from facerec_torch.ops.warp_fast import align_and_crop_fast_batched
 from facerec_torch.parallel.collectives import global_topk_merge
 from facerec_torch.parallel.mesh import Mesh, batch_sharding, capturable, warm_collectives
 from facerec_torch.serve.gallery import GalleryStore
+from facerec_torch.serve.host_frames import HostFrames
 from facerec_torch.utils import profiling
 
 DEFAULT_LANDMARKS = [[40.0, 60.0], [120.0, 60.0], [80.0, 90.0], [50.0, 120.0], [110.0, 120.0]]
@@ -140,6 +142,7 @@ class FacePipeline:
         self._graphs: dict[tuple, _Captured] = {}
         self._graph_inputs: tuple | None = None  # what the graphs read in place
         self._pool = None  # the graphs' shared memory pool
+        self._host_frames = HostFrames(self.device) if self.device.type == "cuda" else None
 
     @torch.no_grad()
     def step(self, frames: torch.Tensor) -> PipelineResult:
@@ -329,19 +332,20 @@ class FacePipeline:
         """Host frames to the device: uint8 travels as uint8 (a quarter of
         the bytes), anything else as float32. With a mesh, only this rank's
         slice of the batch travels. To a card the frames go through pinned
-        memory, and the call returns once they are copied there: the copy to
-        the card is queued behind the work already on the stream instead of
-        waiting for it, as a copy from pageable memory would."""
+        memory (``HostFrames``: a host buffer that the caller uploads again
+        is page-locked in place, and its copy to the card is awaited), and
+        the call returns once the caller may write its buffer again: the
+        copy to the card is not queued behind the work already on the
+        stream, as a copy from pageable memory would be."""
         arr = np.asarray(frames)
         if self.mesh is not None:
             arr = arr[batch_sharding(self.mesh, len(arr), self.mesh.data_axis)]
         if arr.dtype != np.uint8:
             arr = arr.astype(np.float32, copy=False)
-        host = torch.from_numpy(np.ascontiguousarray(arr))
-        if self.device.type != "cuda":
-            return host.to(self.device)
-        # the pinned block is not reused before the copy out of it is done
-        return host.pin_memory().to(self.device, non_blocking=True)
+        arr = np.ascontiguousarray(arr)
+        if self._host_frames is None:
+            return torch.from_numpy(arr).to(self.device)
+        return self._host_frames.upload(arr)
 
     def process(self, frames: np.ndarray) -> PipelineResult:
         """frames: [B, H, W, 3] uint8/float RGB -> device results (with a
