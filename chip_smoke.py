@@ -351,6 +351,12 @@ CROP_SITES = ("rnet", "onet", "align")
 # f32 operations of one crop output value: two row-pass sums and the column
 # pass, each two products and two sums from a +0 start
 CROP_VALUE_OPS = 12
+IRESNET_CROP = 112  # the arcface_ir100 cell's crop
+IRESNET_EPILOGUES = 99  # epilogue passes an embed of IResNet-100: the stem's, 2 a block
+# f32 operations an output value at most: two BatchNorms (3 each) and the
+# PReLU (2), or the add with its shortcut's BatchNorm (4)
+EPILOGUE_VALUE_OPS = 10
+BF16_BATCH_NORM = "batch_norm_transform_input_channels_last_kernel<c10::BFloat16"
 K1_TRAINED_TOL = 6.0e-7  # K1 against its plain version on serve_trained's inputs
 ID_CLASSES, ID_RENDERS, ID_SIZE = 16, 24, 160  # the arcface_synth dataset's shape (synth16)
 # No seed 0-9 of the synthetic generator rebuilds the dataset the checkpoint
@@ -1091,8 +1097,9 @@ def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg, precise_align=Fal
     """bench.py's pipeline: the committed detector, and a full-width embedder
     from seed 1, the ResNet-18 ArcFace or (``embedder="facenet"``)
     InceptionResnetV1 (repeats 5, 10, 5; the VGGFace2 file is not in the
-    repository), or (``embedder="trained"``) the committed trained ArcFace;
-    over ``mesh`` when one is given."""
+    repository), or (``embedder="iresnet"``) IResNet-100 (112 px crops), or
+    (``embedder="trained"``) the committed trained ArcFace; over ``mesh``
+    when one is given."""
     from facerec_torch.config import ServeConfig
     from facerec_torch.detect.mtcnn import MTCNN
     from facerec_torch.detect.weights import load_detector_params
@@ -1111,7 +1118,10 @@ def build_pipeline(dev, frame_hw, max_faces, dtype, batch_cfg, precise_align=Fal
         ck = _embedder_checkpoint(CHECKPOINTS_DIR / TRAINED_CHECKPOINT)
         emb = build_embedder(checkpoint=ck, dtype=dtype, device=dev)
     else:
-        build = {"arcface": build_embedder, "facenet": build_facenet_embedder}[embedder]
+        from facerec_torch.models.iresnet import build_iresnet_embedder
+
+        build = {"arcface": build_embedder, "facenet": build_facenet_embedder,
+                 "iresnet": build_iresnet_embedder}[embedder]
         emb = build(dtype=dtype, seed=1, device=dev)
     return FacePipeline(cfg, frame_hw, det, emb, embed_dim=512, device=dev,
                         precise_align=precise_align, mesh=mesh)
@@ -1349,6 +1359,153 @@ def time_crops(pipe, x, r) -> list[dict]:
     if [row["site"] for row in rows] != list(CROP_SITES):
         raise AssertionError(f"the step made crop calls {[row['site'] for row in rows]}")
     return rows
+
+
+def _epilogue_kind(a, kw: dict) -> str:
+    if kw.get("prelu") is not None:
+        return "stem" if kw.get("next_bn") is not None else "a"
+    if not kw.get("keep", True):
+        return "last"
+    return "b_downsample" if kw.get("shortcut_bn") is not None else "b_identity"
+
+
+def _ordered_bf16(t):
+    """bf16 values as integers in their order: neighbours differ by 1."""
+    import torch
+
+    i = t.contiguous().view(torch.int16).int()
+    return torch.where(i >= 0, i, -(i + 32768))
+
+
+def record_epilogues(pipe, crops) -> dict:
+    """Each epilogue pass of one eager embed of ``crops``, held against the
+    plain route as it runs (the largest gap in bf16 ulps and the values that
+    differ), grouped by kind and shape: {(kind, shape): {"calls", "args"
+    (the first call's map and keywords), "max_ulp", "differ"}}. The launch
+    count stays as it was."""
+    import torch
+
+    from facerec_torch.models import iresnet
+    from facerec_torch.ops import iresnet_epilogue as ep
+
+    kernel, n0, groups = ep.iresnet_epilogue, ep.iresnet_epilogue.launches, {}
+
+    def recording(a, bn, **kw):
+        out = kernel(a, bn, **kw)
+        want = ep.iresnet_epilogue_plain(a, bn, **kw)
+        key = (_epilogue_kind(a, kw), tuple(a.shape))
+        g = groups.setdefault(key, {"calls": 0, "args": None, "max_ulp": 0, "differ": 0,
+                                    "values": 0})
+        if g["args"] is None:
+            g["args"] = (a.clone(), bn, {k: v.clone() if torch.is_tensor(v) else v
+                                         for k, v in kw.items()})
+        g["calls"] += 1
+        for x, y in zip(out, want):
+            if x is not None:
+                ulps = (_ordered_bf16(x) - _ordered_bf16(y)).abs()
+                g["max_ulp"] = max(g["max_ulp"], int(ulps.max().item()))
+                g["differ"] += int((ulps > 0).sum().item())
+                g["values"] += ulps.numel()
+        return out
+
+    iresnet.iresnet_epilogue = recording
+    try:
+        with torch.no_grad():
+            pipe.embedder.embed(crops)
+    finally:
+        iresnet.iresnet_epilogue = kernel
+        ep.iresnet_epilogue.launches = n0
+    return groups
+
+
+def time_epilogues(pipe, x, r) -> dict:
+    """IResNet-100's epilogue passes on a serve step's own 112 px crops: each
+    kind and shape of pass (``record_epilogues``) held against the plain
+    route, then timed: CUDA-event ms over back-to-back calls, device ms
+    (profiler) and host ms per launch, the plain route's ms, and the bound:
+    the maps read and written over 3.35 TB/s, or ``EPILOGUE_VALUE_OPS`` f32
+    operations a value over the CUDA-core rate; an embed's sums over its 99
+    launches."""
+    import torch
+
+    from facerec_torch.ops.iresnet_epilogue import iresnet_epilogue, iresnet_epilogue_plain
+
+    s = pipe.config.embed_size
+    with torch.no_grad():
+        lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)
+        crops = pipe.align(x, r.boxes, lm).reshape(-1, s, s, 3)
+    groups = record_epilogues(pipe, crops)
+    rows = []
+    for (kind, shape), g in groups.items():
+        a, bn, kw = g.pop("args")
+        maps = 1 + (kw.get("shortcut") is not None) + kw.get("keep", True) + \
+            (kw.get("next_bn") is not None)
+        nbytes = maps * a.numel() * a.element_size()
+        bound, by = _bound_ms(nbytes, EPILOGUE_VALUE_OPS * a.numel())
+
+        def fn(a=a, bn=bn, kw=kw):
+            with torch.no_grad():
+                return iresnet_epilogue(a, bn, **kw)
+
+        def plain(a=a, bn=bn, kw=kw):
+            with torch.no_grad():
+                return iresnet_epilogue_plain(a, bn, **kw)
+
+        row = {"kind": kind, "shape": list(shape), "calls": g["calls"], "maps": maps,
+               "mb": nbytes / 1e6, "max_ulp": g["max_ulp"],
+               "differ_share": g["differ"] / g["values"], "ms": _time_ms(fn, iters=20),
+               "device_ms": _kernel_device_ms(fn, ("iresnet_epilogue",)),
+               "host_ms": _host_ms(fn), "plain_ms": _time_ms(plain, iters=10, warmup=2),
+               "bound_ms": bound, "bound_by": by, "library_ms": None}
+        row["bound_share_of_device_ms"] = row["bound_ms"] / row["device_ms"]
+        rows.append(row)
+        print("epilogue time: " + json.dumps(row), flush=True)
+        del a, kw
+    calls = sum(r_["calls"] for r_ in rows)
+    if calls != IRESNET_EPILOGUES:
+        raise AssertionError(f"an embed made {calls} epilogue passes, not {IRESNET_EPILOGUES}")
+    worst = max(r_["max_ulp"] for r_ in rows)
+    if worst > 1:
+        raise AssertionError(f"an epilogue pass is {worst} bf16 ulps from its plain route")
+    per_embed = {k: sum(r_[k] * r_["calls"] for r_ in rows)
+                 for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "mb")}
+    return {"rows": rows, "per_embed": per_embed, "max_ulp": worst,
+            "differ_share": sum(r_["differ_share"] * r_["calls"] for r_ in rows) / calls}
+
+
+def iresnet_epilogues(dev, frames, card: str) -> dict:
+    """IResNet-100 served at 112 px (the arcface_ir100 cell's embedder) with
+    a bf16 gallery of ``SERVE_ROWS`` rows: one profiled replay launches the
+    epilogue kernel 99 times and no bf16 BatchNorm (the head's f32
+    ``features`` keeps PyTorch's); each pass held and timed on the step's
+    own crops (``time_epilogues``)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from facerec_torch.utils.profiling import device_ops
+
+    t0 = time.perf_counter()
+    pipe = build_pipeline(dev, FRAME_HW, FACES, torch.bfloat16,
+                          dict(gallery_capacity=SERVE_ROWS, top_k=5, embed_size=IRESNET_CROP),
+                          embedder="iresnet")
+    x = pipe.upload(frames)
+    r = pipe.run_step(x)  # the warm-ups and the capture
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        pipe.run_step(x)
+        torch.cuda.synchronize()
+    kernels = device_ops(prof)
+    replay = {"iresnet_epilogue": sum(e.count for e in kernels if "iresnet_epilogue" in e.key),
+              "batch_norm_bf16": sum(e.count for e in kernels if BF16_BATCH_NORM in e.key),
+              "kernels_traced": sum(e.count for e in kernels)}
+    print("iresnet: launches per replay: " + json.dumps(replay), flush=True)
+    if replay["iresnet_epilogue"] != IRESNET_EPILOGUES or replay["batch_norm_bf16"]:
+        raise AssertionError(f"one IResNet-100 replay launched {replay}")
+    timed = time_epilogues(pipe, x, r)
+    out = {"launches_per_replay": replay, "phase_s": time.perf_counter() - t0} | timed
+    print("iresnet epilogue: " + json.dumps({k: v for k, v in out.items() if k != "rows"}
+                                            | {"card": card}), flush=True)
+    return out
 
 
 def replay_launches(path: str, pipe, x, want: dict) -> dict:
@@ -3121,13 +3278,15 @@ def k2_tilings(k2_in, blocks_per_sm=(2, 1), segments=(1, 2, 3, 4)) -> list[dict]
 
 
 def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time,
-                crop_time) -> list[dict]:
+                crop_time, epilogues) -> list[dict]:
     """The kernels line: each kernel's launches on every path, its error at
     the serve shape and on each path's own inputs (``held``), and its
     times (the NMS kernel's on each of the serve path's five calls,
     ``nms_time``, its headline at the cross-scale call, the largest; the
     crop kernel's on each of its three, ``crop_time``, its headline at the
-    align call, the largest)."""
+    align call, the largest; the IResNet epilogue's, ``epilogues``, on an
+    IResNet-100 embed of the serve batch, its headline the sum over the
+    embed's 99 passes)."""
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
     from facerec_torch.ops.warp_fast import rotate_patches
 
@@ -3198,6 +3357,16 @@ def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time,
          "per_step": {key: sum(r[key] for r in crop_time)
                       for key in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms")},
          "sites": crop_time},
+        {"name": "iresnet_epilogue", "route": "cuda",
+         "source": "facerec_torch/csrc/iresnet_epilogue.cu", "replaces": None,
+         "launches": epilogues["launches_per_replay"]["iresnet_epilogue"],
+         "launches_by_path": {"serve_iresnet100": IRESNET_EPILOGUES},
+         "max_ulp": epilogues["max_ulp"], "differ_share": epilogues["differ_share"],
+         "shape": f"an IResNet-100 embed of {BATCH * FACES} crops of {IRESNET_CROP} px "
+                  f"({IRESNET_EPILOGUES} passes)",
+         **{key: epilogues["per_embed"][key] for key in ("ms", "device_ms", "host_ms",
+                                                         "plain_ms", "bound_ms")},
+         "bound_by": "bytes", "library_ms": None, "passes": epilogues["rows"]},
     ]
 
 
@@ -3789,6 +3958,8 @@ def main() -> int:
         | {k: trained_read[k] for k in ("read_s", "load_checkpoint_s")}
         | {"accuracy_f32": identified["accuracy_f32"], "card": card}), flush=True)
     torch.cuda.empty_cache()
+    epilogues = iresnet_epilogues(dev, frames, card)
+    torch.cuda.empty_cache()
     t0 = time.perf_counter()
     bench_rows = bench_cli(card)
     bench_cli_s = time.perf_counter() - t0
@@ -3844,7 +4015,8 @@ def main() -> int:
     held["demo"] = demo_stats["kernels_held"]
     print("demo: " + json.dumps(demo_stats | {"card": card}), flush=True)
     torch.cuda.empty_cache()
-    rows = kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time, crop_time)
+    rows = kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time, crop_time,
+                       epilogues)
     if "jax" in sys.modules:
         raise AssertionError("the run imported jax")
     print(f"script: {time.perf_counter() - t_script:.1f} s", flush=True)

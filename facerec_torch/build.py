@@ -21,7 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("gallery_topk", "shear_rotate", "nms_fixed_point", "crop_resize")
+SOURCES = ("gallery_topk", "shear_rotate", "nms_fixed_point", "crop_resize", "iresnet_epilogue")
 LOADER = "loader"
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

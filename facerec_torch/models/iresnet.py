@@ -23,9 +23,21 @@ As insightface serves it, the trunk runs in the compute dtype (bf16 here,
 its autocast) and the head's ``fc`` and ``features`` in f32. Input: NHWC
 RGB crops, 0..255, standardised as (x - 127.5) / 127.5.
 
+Served on the card (CUDA maps, the trunk in bf16, channels_last, widths a
+multiple of 8, eval mode, no gradient wanted: ``fusable``), ``embed`` takes
+the fused route: cuDNN runs the convolutions, and each block's BatchNorms,
+PReLU and residual add run as two passes of ``ops/iresnet_epilogue.py``'s
+kernel, after ``conv1`` (``prelu(bn2(.))``) and after ``conv2`` (``bn3(.)``
+plus the shortcut, written with the next block's ``bn1`` of it, which a
+zero-padded ``conv1`` cannot fold); the stem's pass writes
+``layer1.0.bn1`` too, the last block's only the head's ``bn2``: 1 + 2 x 49
+launches an embed of IResNet-100. Each output is the module chain's, which
+every other input takes (the CPU, f32, train mode).
+
 With tracing on (``utils.profiling``), ``embed`` records the device spans
 ``embed.stem``, ``embed.stage1`` to ``embed.stage4`` and ``embed.head``;
-inside the serve step they nest in ``serve.step.embed``.
+inside the serve step they nest in ``serve.step.embed``. On the fused route
+it adds its launches to the device counter ``embed.fused_epilogues``.
 """
 
 from __future__ import annotations
@@ -40,9 +52,10 @@ from facerec_torch import resolve_device
 from facerec_torch.models.arcface import init_like_flax
 from facerec_torch.models.resnet import BatchNorm
 from facerec_torch.ops.arcface import l2_normalize
+from facerec_torch.ops.iresnet_epilogue import VEC, iresnet_epilogue
 from facerec_torch.utils import profiling
 
-__all__ = ["IBasicBlock", "IResNet", "LAYERS", "standardize", "flatten_nchw",
+__all__ = ["IBasicBlock", "IResNet", "LAYERS", "standardize", "flatten_nchw", "fusable",
            "build_iresnet_embedder"]
 
 LAYERS = (3, 13, 30, 3)  # iresnet100
@@ -74,6 +87,18 @@ class IBasicBlock(nn.Module):
         out = self.bn3(self.conv2(self.prelu(self.bn2(self.conv1(self.bn1(x))))))
         return out + (x if self.downsample is None else self.downsample(x))
 
+    def fused(self, x: torch.Tensor, x_bn1: torch.Tensor, next_bn: nn.BatchNorm2d,
+              keep: bool = True) -> tuple[torch.Tensor | None, torch.Tensor]:
+        """The block on the fused route: ``x`` its input and ``x_bn1`` its
+        ``bn1(x)``, both from the pass before. Returns (the block's output,
+        None where not ``keep``; ``next_bn`` of it)."""
+        d, _ = iresnet_epilogue(self.conv1(x_bn1), self.bn2, prelu=self.prelu)
+        e = self.conv2(d)
+        if self.downsample is None:
+            return iresnet_epilogue(e, self.bn3, shortcut=x, next_bn=next_bn, keep=keep)
+        return iresnet_epilogue(e, self.bn3, shortcut=self.downsample[0](x),
+                                shortcut_bn=self.downsample[1], next_bn=next_bn, keep=keep)
+
 
 class IResNet(nn.Module):
     """The embedder; ``embed(crops [N, crop, crop, 3], 0..255)`` gives unit
@@ -99,20 +124,50 @@ class IResNet(nn.Module):
 
     def embed(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         dev = x_nhwc.device
+        stages = [getattr(self, f"layer{i}") for i in range(1, 5)]
+        blocks = [b for layer in stages for b in layer]
         with profiling.device_span("embed.stem", dev):
             # NCHW view of the NHWC crops: channels_last memory, as cuDNN takes it
             x = standardize(x_nhwc).to(self.conv1.weight.dtype).permute(0, 3, 1, 2)
-            x = self.prelu(self.bn1(self.conv1(x)))
-        for i in range(1, 5):
+            x = self.conv1(x)
+            fused = fusable(self, x)
+            if fused:
+                x, xb = iresnet_epilogue(x, self.bn1, prelu=self.prelu, next_bn=blocks[0].bn1)
+            else:
+                x = self.prelu(self.bn1(x))
+        k = 0
+        for i, layer in enumerate(stages, start=1):
             with profiling.device_span(f"embed.stage{i}", dev):
-                x = getattr(self, f"layer{i}")(x)
+                if not fused:
+                    x = layer(x)
+                    continue
+                for block in layer:  # each block's pass B writes the next one's bn1
+                    k += 1
+                    last = k == len(blocks)
+                    x, xb = block.fused(x, xb, self.bn2 if last else blocks[k].bn1,
+                                        keep=not last)
         with profiling.device_span("embed.head", dev):
-            x = flatten_nchw(self.bn2(x))
+            x = flatten_nchw(xb if fused else self.bn2(x))
             x = self.features(self.fc(x.to(self.fc.weight.dtype)))
+            if fused and profiling.enabled():
+                profiling.device_count("embed.fused_epilogues", torch.full(
+                    (), 1 + 2 * len(blocks), dtype=torch.int64, device=dev))
             return l2_normalize(x.float())
 
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         return self.embed(x_nhwc)
+
+
+def fusable(model: nn.Module, x: torch.Tensor) -> bool:
+    """Whether ``model.embed`` takes the fused route for its stem map ``x``:
+    on a card, bf16, channels_last, the stem's and every stage's width a
+    multiple of 8, eval mode, no gradient wanted."""
+    widths = [x.shape[1]] + [getattr(model, f"layer{i}")[0].bn3.num_features
+                             for i in range(1, 5)]
+    return (x.is_cuda and x.dtype == torch.bfloat16 and x.dim() == 4
+            and x.is_contiguous(memory_format=torch.channels_last)
+            and all(w % VEC == 0 for w in widths)
+            and not model.training and not torch.is_grad_enabled())
 
 
 def standardize(x: torch.Tensor) -> torch.Tensor:

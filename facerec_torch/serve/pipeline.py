@@ -102,10 +102,10 @@ class _Captured(NamedTuple):
 def _kernel_wrappers() -> tuple:
     """The port's kernel wrappers, whose ``launches`` counts a replay
     advances by what its capture recorded."""
-    from facerec_torch.ops import crop_kernel, gallery, nms, warp_kernel
+    from facerec_torch.ops import crop_kernel, gallery, iresnet_epilogue, nms, warp_kernel
 
     return (gallery.gallery_topk, warp_kernel.rotate_patches_kernel, nms.nms_suppress,
-            crop_kernel.crop_resize_kernel)
+            crop_kernel.crop_resize_kernel, iresnet_epilogue.iresnet_epilogue)
 
 
 class FacePipeline:

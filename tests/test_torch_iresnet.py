@@ -4,8 +4,10 @@ on the CPU, on weights drawn as the benchmark draws them
 (``perfbench.weights.make_state``: PReLU slopes 0.25 + 0.05 z, BatchNorm
 scales 1 + 0.1 z, running variances exp(0.2 z)), at two small depths and
 crops; insightface's ``iresnet100`` state-dict layout; the benchmark's
-count of its multiply-adds; its spans. The card's tests are in
-``tests/test_torch_iresnet_cuda.py``."""
+count of its multiply-adds; its spans; the fused route's passes
+(``ops/iresnet_epilogue.py``) on their CPU route against the module chain,
+which route an input takes, and what the pass refuses. The card's tests are
+in ``tests/test_torch_iresnet_cuda.py``."""
 
 import numpy as np
 import pytest
@@ -14,6 +16,7 @@ import torch.nn as nn
 
 from facerec_torch.models import iresnet
 from facerec_torch.models.iresnet import IResNet, build_iresnet_embedder
+from facerec_torch.ops.iresnet_epilogue import iresnet_epilogue
 from facerec_torch.utils import profiling
 from perfbench import weights
 from perfbench.embedders import arcface_iresnet100
@@ -214,3 +217,167 @@ def test_the_spans_nest_in_the_callers():
         assert [s["name"] for s in mine] == names
         assert all(caller["start"] <= s["start"] <= s["end"] <= caller["end"] for s in mine)
         assert np.all(np.diff([s["start"] for s in mine]) >= 0)
+
+
+# -- the fused route (ops/iresnet_epilogue.py) --------------------------------------------
+
+FUSED_LAYERS, FUSED_CROP = (2, 2, 2, 2), 32  # every kind of pass: identity last block
+
+
+def _cl_model(layers=FUSED_LAYERS, crop=FUSED_CROP, dtype=torch.bfloat16):
+    state, crops = _case(layers, crop, dtype, n=3)
+    model = build_iresnet_embedder(state, dtype=dtype, device="cpu")
+    return model.to(memory_format=torch.channels_last), crops
+
+
+def _map(shape, seed, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=g) * 2 + 0.3
+    return x.to(dtype).contiguous(memory_format=torch.channels_last)
+
+
+def _pass_case(model, kind):
+    """(what the fused route computes, what the module chain computes) for
+    one kind of pass: each a (output, next BatchNorm of it) pair."""
+    if kind == "stem":
+        c = _map((3, 64, 32, 32), 1)
+        z = model.prelu(model.bn1(c))
+        got = iresnet_epilogue(c, model.bn1, prelu=model.prelu, next_bn=model.layer1[0].bn1)
+        return got, (z, model.layer1[0].bn1(z))
+    block, x, nxt, keep = {
+        "plain_block": (model.layer2[1], _map((3, 128, 8, 8), 2), model.layer3[0].bn1, True),
+        "downsample_block": (model.layer3[0], _map((3, 128, 8, 8), 3), model.layer3[1].bn1,
+                             True),
+        "last_block": (model.layer4[1], _map((3, 512, 2, 2), 4), model.bn2, False),
+    }[kind]
+    z = block(x)
+    return block.fused(x, block.bn1(x), nxt, keep=keep), (z if keep else None, nxt(z))
+
+
+@pytest.mark.parametrize("kind", ["stem", "plain_block", "downsample_block", "last_block"])
+def test_the_passes_cpu_route_is_the_module_chain_bit_for_bit(kind):
+    model, _ = _cl_model()
+    with torch.no_grad():
+        (z, zn), (want_z, want_zn) = _pass_case(model, kind)
+    assert (z is None) == (want_z is None)
+    for got, want in ((z, want_z), (zn, want_zn)):
+        if got is None:
+            continue
+        assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+        assert got.is_contiguous(memory_format=torch.channels_last)
+
+
+def _fused_counts(snap):
+    return [c["value"] for c in snap["counts"] if c["name"] == "embed.fused_epilogues"]
+
+
+@pytest.mark.parametrize("layers,crop", SMALL + [(FUSED_LAYERS, FUSED_CROP)])
+def test_the_fused_route_is_the_module_chain_end_to_end(monkeypatch, layers, crop):
+    """The whole embed through the passes' CPU route (the route chosen as
+    on a card) against the module chain, bit for bit; the counter reads the
+    route's launches, 1 + 2 per block, and is absent on the chain."""
+    model, crops = _cl_model(layers, crop)
+    profiling.disable()
+    profiling.reset()
+    profiling.enable()
+    try:
+        with torch.no_grad():
+            chain = model.embed(crops)
+            assert _fused_counts(profiling.snapshot()) == []
+            monkeypatch.setattr(iresnet, "fusable", lambda model, x: True)
+            fused = model.embed(crops)
+        snap = profiling.snapshot()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert torch.equal(fused, chain)
+    assert _fused_counts(snap) == [1 + 2 * sum(layers)]
+
+
+class _OnCard:
+    """A CPU map that says it lies on a card, for the route's predicate."""
+
+    is_cuda = True
+
+    def __init__(self, t: torch.Tensor):
+        self.t = t
+
+    def __getattr__(self, name):
+        return getattr(self.t, name)
+
+
+def _fusable_case(kind):
+    model, _ = _cl_model((1, 1, 1, 1))
+    x = _map((2, 64, 8, 8), 5)
+    if kind == "f32":
+        x = x.float()
+    elif kind == "train":
+        model.train()
+    elif kind == "not_channels_last":
+        x = x.contiguous()
+    elif kind == "12_channels":
+        x = _map((2, 12, 8, 8), 5)
+    return model, (x if kind == "cpu" else _OnCard(x))
+
+
+@pytest.mark.parametrize("kind,want", [("served", True), ("cpu", False), ("f32", False),
+                                       ("train", False), ("not_channels_last", False),
+                                       ("12_channels", False), ("grad", False)])
+def test_only_a_served_bf16_channels_last_map_on_a_card_is_fusable(kind, want):
+    model, x = _fusable_case(kind)
+    with torch.set_grad_enabled(kind == "grad"):
+        assert iresnet.fusable(model, x) is want
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_embed_on_the_cpu_takes_the_module_chain(monkeypatch, dtype):
+    def refuse(*args, **kwargs):
+        raise AssertionError("the fused route ran on the CPU")
+
+    model, crops = _cl_model((1, 1, 1, 1), dtype=dtype)
+    monkeypatch.setattr(iresnet, "iresnet_epilogue", refuse)
+    profiling.disable()
+    profiling.reset()
+    profiling.enable()
+    try:
+        with torch.no_grad():
+            got = model.embed(crops)
+        snap = profiling.snapshot()
+    finally:
+        profiling.disable()
+        profiling.reset()
+    assert got.shape == (len(crops), 512) and _fused_counts(snap) == []
+
+
+def _bad_call(kind):
+    model, _ = _cl_model((1, 1, 1, 1))
+    a, b = _map((2, 64, 8, 8), 6), _map((2, 64, 8, 8), 7)
+    bn, nxt = model.layer1[0].bn3, model.layer2[0].bn1
+    f32_bn = nn.BatchNorm2d(64).eval()
+    short_bn = nn.BatchNorm2d(48).to(torch.bfloat16).eval()
+    return {
+        "f32_map": lambda: iresnet_epilogue(a.float(), bn),
+        "f32_shortcut": lambda: iresnet_epilogue(a, bn, shortcut=b.float()),
+        "f32_parameters": lambda: iresnet_epilogue(a, f32_bn),
+        "map_on_another_device": lambda: iresnet_epilogue(a.to("meta"), bn),
+        "shortcut_on_another_device": lambda: iresnet_epilogue(a, bn, shortcut=b.to("meta")),
+        "3d_map": lambda: iresnet_epilogue(a[0], bn),
+        "not_channels_last": lambda: iresnet_epilogue(a.contiguous(), bn),
+        "12_channels": lambda: iresnet_epilogue(_map((2, 12, 8, 8), 8), bn),
+        "shortcut_shape": lambda: iresnet_epilogue(a, bn, shortcut=b[:1]),
+        "parameters_of_another_width": lambda: iresnet_epilogue(a, short_bn),
+        "writes_nothing": lambda: iresnet_epilogue(a, bn, keep=False),
+        "shortcut_bn_alone": lambda: iresnet_epilogue(a, bn, shortcut_bn=bn, next_bn=nxt),
+    }[kind]
+
+
+@pytest.mark.parametrize("kind,error", [
+    ("f32_map", TypeError), ("f32_shortcut", TypeError), ("f32_parameters", TypeError),
+    ("map_on_another_device", ValueError), ("shortcut_on_another_device", ValueError),
+    ("3d_map", ValueError), ("not_channels_last", ValueError), ("12_channels", ValueError),
+    ("shortcut_shape", ValueError), ("parameters_of_another_width", ValueError),
+    ("writes_nothing", ValueError), ("shortcut_bn_alone", ValueError)])
+def test_the_pass_refuses_what_the_kernel_does_not_take(kind, error):
+    call = _bad_call(kind)
+    with torch.no_grad(), pytest.raises(error):
+        call()
