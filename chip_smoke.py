@@ -4,10 +4,11 @@
 
 Phases, each of which raises (and so exits nonzero) on failure:
 
-  1. build    every CUDA kernel of the serve step from ``facerec_torch/csrc``
-              (K1, K2 and the NMS kernel, which builds its suppression
-              bits from the boxes: ``nms_suppress``) (one ``nvcc`` per
-              source, all at once), and the host JPEG loader
+  1. build    every CUDA source of ``facerec_torch/csrc`` (``build.SOURCES``:
+              the kernels of ``ops/kernels.py``'s table, K1, K2, the NMS
+              kernel, the crop kernel and the IResNet epilogue, and the
+              trace stamp) (one ``nvcc`` per source, all at once), and the
+              host JPEG loader
               (``csrc/loader.cpp``) with ``g++``; a loader that does not build
               prints the compiler's error and leaves the trainer on PIL;
   2. K1       the gallery top-k kernel against its plain PyTorch version fed
@@ -48,8 +49,9 @@ Phases, each of which raises (and so exits nonzero) on failure:
               half filled), through the captured step: the first call
               captures the CUDA graph (its time and peak memory printed),
               then one replay with every launch count set to 0 just before:
-              K1 and K2 once, the NMS kernel 5 times and the crop kernel 3
-              times (the profiler's kernel names on one replay must say the
+              what ``multichip.step_launches`` says, K1 and K2 once, the NMS
+              kernel 5 times, the crop kernel 3 times and no epilogue pass
+              (the profiler's kernel names on one replay must say the
               same), at least 0.95 x
               384 faces found at p >= 0.6, and every field ``torch.equal``
               to the eager ``step`` on the same frames; the NMS kernel
@@ -86,7 +88,10 @@ Phases, each of which raises (and so exits nonzero) on failure:
               the card against the CPU with FaceNet, faces/s, stage ms and
               the busy share, printed beside the ArcFace serve path's. On
               each serve path, each kernel it launched is held against its
-              plain version on the inputs that path gave it;
+              plain version on the inputs that path gave it
+              (``multichip.hold_kernels``: K1 within 1e-5 of the rounded
+              queries, within 2e-3 of f32 queries on a bf16 gallery, near
+              ties at most 0.1% of the slots; the others bit for bit);
      serve_trained  the trained ArcFace the repository commits
               (``outputs/checkpoints/arcface_synth/best``, an orbax tree)
               read by the port's own reader (``facerec_torch.train.orbax``,
@@ -104,6 +109,12 @@ Phases, each of which raises (and so exits nonzero) on failure:
               normalised, as the model was trained): the f32 embedder's
               correct answers >= JAX's on the CPU (343) less one, and above
               the random-init embedder's on the same renders;
+     serve_iresnet100  the 1,024-row step (half filled) with IResNet-100 at
+              112 px (the arcface_ir100 cell's embedder): one replay from 0
+              launches 99 epilogue passes beside the other kernels, by count
+              and by the profiler's kernel names, and no bf16 BatchNorm;
+              every kernel held on the path's own inputs, each pass within
+              one bf16 ulp of its plain route; each kind of pass timed;
      bench    ``python -m facerec_torch.cli.main bench`` (``facerec_torch.bench``,
               the counterpart of ``bench.py``) in a subprocess, at the
               defaults and with ``BENCH_TRANSFER=1``: exit code 0, its last
@@ -112,15 +123,17 @@ Phases, each of which raises (and so exits nonzero) on failure:
               ``detected_p090_ok`` true, its ``#`` line, and no JAX module
               imported (``-X importtime``); then the bench's ``prepare`` and
               ``measure`` in this process with the counts from 0 (every
-              kernel launched; one replay K1 1, K2 1, NMS 5, crop 3 by the
-              profiler's kernel names) and each kernel held on the bench's
+              kernel of the step launched and no other; one replay K1 1, K2
+              1, NMS 5, crop 3, no epilogue pass by the profiler's kernel
+              names) and each kernel held on the bench's
               own inputs; its faces/s beside the serve phase's captured
               figure;
      mesh     the mesh path (``facerec_torch/parallel``): at world size 1
               over NCCL, the serve step through ``FacePipeline(mesh=(1, 1))``,
               captured and replayed (the replay ``torch.equal`` to the eager
-              mesh step; K1 1, K2 1, NMS 5 and crop 3 per replay, by count and by
-              the profiler's kernel names), and one f32 ArcFace train step
+              mesh step; K1 1, K2 1, NMS 5, crop 3 and no epilogue pass per
+              replay, by count and by the profiler's kernel names), and one
+              f32 ArcFace train step
               through the mesh path, each ``torch.equal`` to the plain one;
               then two
               ranks that time-share the card over gloo (spawned; a rank that
@@ -140,8 +153,8 @@ Phases, each of which raises (and so exits nonzero) on failure:
               within 1e-3 of one process's step from the same state on
               loss, grad_norm and parameters (the free runs' drift from one
               process, and one process's from itself, printed). Counts
-              from 0 per layout and rank (K1 and K2 once a serve step, 0 in
-              training), each kernel held on the rank's own inputs, faces/s
+              from 0 per layout and rank (a serve step's, 0 in training),
+              each kernel held on the rank's own inputs, faces/s
               and step ms per rank (two ranks on one card: no multi-card
               speed);
      multichip  where the machine has four cards: ``python -m
@@ -264,14 +277,11 @@ import sys
 import time
 from pathlib import Path
 
-ROOT = Path(__file__).resolve().parent
+# the H100 SXM's published peaks: HBM bytes/s, f32 FLOP/s on the CUDA cores
+# (K2 and K1's f32 path), dense bf16 FLOP/s on the tensor cores (K1's bf16 path)
+from perfbench.flops import PEAK_BF16_FLOPS, PEAK_F32_FLOPS, PEAK_HBM_BYTES
 
-# H100 SXM published peaks (NVIDIA data sheet): HBM bytes/s, f32 FLOP/s on
-# the CUDA cores (K2 and K1's f32 path), dense bf16 FLOP/s on the tensor
-# cores (K1's bf16 path).
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
-BF16_TC_FLOPS = 989e12
+ROOT = Path(__file__).resolve().parent
 
 FRAME_HW = (480, 640)
 BATCH = 48
@@ -352,7 +362,6 @@ CROP_SITES = ("rnet", "onet", "align")
 # pass, each two products and two sums from a +0 start
 CROP_VALUE_OPS = 12
 IRESNET_CROP = 112  # the arcface_ir100 cell's crop
-IRESNET_EPILOGUES = 99  # epilogue passes an embed of IResNet-100: the stem's, 2 a block
 # f32 operations an output value at most: two BatchNorms (3 each) and the
 # PReLU (2), or the add with its shortcut's BatchNorm (4)
 EPILOGUE_VALUE_OPS = 10
@@ -604,8 +613,8 @@ def _time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return start.elapsed_time(end) / iters
 
 
-def _bound_ms(nbytes: float, flops: float, peak: float = F32_FLOPS) -> tuple[float, str]:
-    tb, tf = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+def _bound_ms(nbytes: float, flops: float, peak: float = PEAK_F32_FLOPS) -> tuple[float, str]:
+    tb, tf = nbytes / PEAK_HBM_BYTES * 1e3, flops / peak * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -617,33 +626,20 @@ def _unit(gen, rows, dim, dev):
 
 
 def _k1_case(name, q, g, count, k, tol):
-    """One K1 comparison. Returns (max abs error against the rounded-query
-    plain version, near-tie slots, valid slots)."""
-    import torch
+    """One K1 comparison (``multichip.k1_case``), printed; raises outside its
+    bars. Returns (max abs error against the rounded-query plain version,
+    near-tie slots, valid slots)."""
+    from facerec_torch.multichip import k1_case
 
-    from facerec_torch.ops.gallery import gallery_topk, gallery_topk_plain
-
-    cnt = torch.tensor(count, dtype=torch.int32, device=q.device)
-    v1, i1 = gallery_topk(q, g, cnt, k=k)
-    v0, i0 = gallery_topk_plain(q.to(g.dtype), g, cnt, k=k)
-    vf, _ = gallery_topk_plain(q, g, cnt, k=k)
-    torch.cuda.synchronize()
-    nv = min(count, k)
-    pad_ok = torch.equal(i1[:, nv:], i0[:, nv:]) and torch.equal(v1[:, nv:], v0[:, nv:])
-    differ = i1[:, :nv] != i0[:, :nv]
-    near, gap = int(differ.sum().item()), 0.0
-    if near:
-        s1 = (q.to(g.dtype).float()[:, None, :] * g[i1[:, :nv].long()].float()).sum(-1)
-        gap = (s1 - v0[:, :nv]).abs()[differ].max().item()
-    err = (v1 - v0)[:, :nv].abs().max().item() if nv else 0.0
-    err_f = (v1 - vf)[:, :nv].abs().max().item() if nv else 0.0
+    c = k1_case(q, g, count, k, tol)
     print(f"K1 {name}: B={q.shape[0]} G={g.shape[0]} {str(g.dtype)[6:]} count={count} k={k} "
-          f"near_tie_slots={near}/{differ.numel()} (gap {gap:.3g}) masked_slots_exact={pad_ok} "
-          f"max_abs_err={err:.3g} (tol 1e-5) vs_f32_queries={err_f:.3g} (tol {tol})", flush=True)
-    if not (pad_ok and gap <= 1e-5 and err <= 1e-5 and err_f <= tol):
-        bad = differ.any(dim=1).nonzero().flatten()[:3].tolist()
-        raise AssertionError(f"K1 {name} disagrees with its plain version (rows {bad})")
-    return err, near, differ.numel()
+          f"near_tie_slots={c['near_tie_slots']}/{c['slots']} (gap {c['near_tie_gap']:.3g}) "
+          f"masked_slots_exact={c['masked_equal']} max_abs_err={c['max_abs_err']:.3g} "
+          f"(tol 1e-5) vs_f32_queries={c['f32_err']:.3g} (tol {tol})", flush=True)
+    if not c["within"]:
+        raise AssertionError(f"K1 {name} disagrees with its plain version (rows "
+                             f"{c['rows_differing']})")
+    return c["max_abs_err"], c["near_tie_slots"], c["slots"]
 
 
 def check_k1(dev):
@@ -759,7 +755,7 @@ def time_k1(q, galleries, k: int = 5) -> list[dict]:
         qb, gv = q.to(torch.bfloat16), g[:count]
         gf = gv.float()
         bound, by = _bound_ms(b * dim * 4 + count * dim * 2 + b * k * 8, 2.0 * b * count * dim,
-                              BF16_TC_FLOPS)
+                              PEAK_BF16_FLOPS)
         try:
             torch.mm(qb, gv.T, out_dtype=torch.float32)
             lib_kind = "topk(mm(bf16, bf16, out_dtype=f32))"
@@ -883,6 +879,7 @@ def check_k2(dev):
     over all cases)."""
     import torch
 
+    from facerec_torch.ops import kernels
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
     from facerec_torch.ops.warp_fast import rotate_patches
 
@@ -895,13 +892,13 @@ def check_k2(dev):
     serve_in, worst = None, 0.0
     for name, case, n, p, e in cases:
         patches, angles, centers = _k2_inputs(case, n, p, g0, dev)
-        before = rotate_patches_kernel.launches
+        before = kernels.launches()["shear_rotate"]
         got = rotate_patches_kernel(patches, angles, centers, e)
         ref = rotate_patches(patches, angles, centers, e)
         torch.cuda.synchronize()
         err = (got.float() - ref.float()).abs().max().item() if n else 0.0
         worst = max(worst, err)
-        launched = rotate_patches_kernel.launches - before
+        launched = kernels.launches()["shear_rotate"] - before
         fb8 = fb8_lines(angles, centers, p) if n else 0
         ok = (got.shape == (n, e, e, 3) and torch.equal(got, ref) and launched == (1 if n else 0)
               and (case != "tiny" or fb8 > 0))
@@ -1160,66 +1157,6 @@ def small_input_agrees(dev, embedder: str = "arcface") -> None:
         raise AssertionError("the step on the card disagrees with the CPU step on a small input")
 
 
-def _zero_launches() -> None:
-    from facerec_torch.ops.crop_kernel import crop_resize_kernel
-    from facerec_torch.ops.gallery import gallery_topk
-    from facerec_torch.ops.nms import nms_suppress
-    from facerec_torch.ops.warp_kernel import rotate_patches_kernel
-
-    gallery_topk.launches = 0
-    rotate_patches_kernel.launches = 0
-    nms_suppress.launches = 0
-    crop_resize_kernel.launches = 0
-
-
-def _launches() -> dict:
-    from facerec_torch.ops.crop_kernel import crop_resize_kernel
-    from facerec_torch.ops.gallery import gallery_topk
-    from facerec_torch.ops.nms import nms_suppress
-    from facerec_torch.ops.warp_kernel import rotate_patches_kernel
-
-    return {"gallery_topk": gallery_topk.launches, "shear_rotate": rotate_patches_kernel.launches,
-            "nms_suppress": nms_suppress.launches, "crop_resize": crop_resize_kernel.launches}
-
-
-def _step_launches(precise: bool = False, steps: int = 1) -> dict:
-    """The launches ``steps`` serve steps make: K1 once, K2 once (not on
-    the precise path), the NMS kernel once for each of its five calls, the
-    crop kernel once for each of its three (two on the precise path)."""
-    return {"gallery_topk": steps, "shear_rotate": 0 if precise else steps,
-            "nms_suppress": len(NMS_SITES) * steps,
-            "crop_resize": (len(CROP_SITES) - (1 if precise else 0)) * steps}
-
-
-def hold_nms(path: str, pipe, x) -> dict:
-    """The NMS kernel against its plain version, bit for bit (keep and
-    rounds), on each of the five calls of the path's step, on the path's own
-    inputs (boxes, masked scores, valid, threshold, mode); the rounds each
-    call took (max and mean over its rows)."""
-    import torch
-
-    from facerec_torch.multichip import record_nms
-    from facerec_torch.ops.nms import nms_suppress, nms_suppress_plain
-
-    calls = record_nms(pipe, x)
-    if len(calls) != len(NMS_SITES):
-        raise AssertionError(f"the {path} detect made {len(calls)} NMS calls, not "
-                             f"{len(NMS_SITES)}")
-    sites = {}
-    for site, args in zip(NMS_SITES, calls):
-        keep, rounds = nms_suppress(*args)
-        ref, ref_rounds = nms_suppress_plain(*args)
-        sites[site] = {"rows": keep.shape[0], "boxes": keep.shape[1], "mode": args[4],
-                       "bit_exact": bool(torch.equal(keep, ref) and torch.equal(rounds, ref_rounds)),
-                       "rounds_max": int(rounds.max().item()),
-                       "rounds_mean": rounds.float().mean().item()}
-    print(f"NMS {path}: " + json.dumps(sites), flush=True)
-    if not all(v["bit_exact"] for v in sites.values()):
-        raise AssertionError(f"the NMS kernel disagrees with its plain version on the {path} "
-                             "path")
-    return sites
-
-
 def nms_adversarial_rows():
     """[4, 12] rows of pairs that sit on the edges of the test: in row 0 a
     pair whose IoU is exactly 0.5 (inter 50 over union 100; min
@@ -1257,15 +1194,16 @@ def time_nms(pipe, x) -> list[dict]:
     ``x``: CUDA-event ms over back-to-back calls, its device ms (profiler)
     and host ms, the plain version's ms (overlap matrix, score order and
     fixed point as PyTorch ops), and the bound: the larger of the boxes,
-    scores and valid read and the keep and rounds written over 3.35 TB/s,
-    and N^2 overlaps a row of ``NMS_PAIR_OPS[mode]`` f32 operations over the
-    CUDA-core f32 rate. Beside it, the whole ``nms`` call at the same site
-    (the masked scores, the kernel, the top-k and gathers after it): its
-    device ms and kernels a call, from the profiler over 10 calls."""
+    scores and valid read and the keep and rounds written over the HBM
+    peak, and N^2 overlaps a row of ``NMS_PAIR_OPS[mode]`` f32 operations
+    over the CUDA-core f32 rate. Beside it, the whole ``nms`` call at the
+    same site (the masked scores, the kernel, the top-k and gathers after
+    it): its device ms and kernels a call, from the profiler over 10
+    calls."""
     import torch
 
     from facerec_torch.detect import mtcnn
-    from facerec_torch.multichip import record_nms
+    from facerec_torch.ops import kernels
     from facerec_torch.ops.nms import nms_suppress, nms_suppress_plain
 
     whole, real = [], mtcnn.nms
@@ -1277,13 +1215,14 @@ def time_nms(pipe, x) -> list[dict]:
 
     mtcnn.nms = recording
     try:
-        calls = record_nms(pipe, x)
+        with kernels.recording("nms_suppress") as calls, torch.no_grad():
+            pipe.detector.detect(x)
     finally:
         mtcnn.nms = real
     if len(whole) != len(NMS_SITES):
         raise AssertionError(f"the detect made {len(whole)} nms calls, not {len(NMS_SITES)}")
     rows = []
-    for site, args, (call_args, call_kwargs) in zip(NMS_SITES, calls, whole):
+    for site, (args, _), (call_args, call_kwargs) in zip(NMS_SITES, calls, whole):
         m, n = args[1].shape
         mode = args[4]
         bound, by = _bound_ms(m * n * (16 + 4 + 1) + m * n + 4 * m,
@@ -1326,17 +1265,18 @@ def crop_read_bytes(images, boxes, out: int) -> int:
 
 def time_crops(pipe, x, r) -> list[dict]:
     """The crop kernel at each of its three calls in one serve step, on the
-    step's own inputs (``multichip.record_crops``): CUDA-event ms over
+    step's own inputs (``multichip.record_step``): CUDA-event ms over
     back-to-back calls, its device ms (profiler) and host ms, the matmul
     route's ms, and the bound: the output written and the bytes read
-    (``crop_read_bytes``) over 3.35 TB/s, or ``CROP_VALUE_OPS`` f32
+    (``crop_read_bytes``) over the HBM peak, or ``CROP_VALUE_OPS`` f32
     operations an output value over the CUDA-core f32 rate."""
-    from facerec_torch.multichip import record_crops
+    from facerec_torch.multichip import record_step
     from facerec_torch.ops.crop_kernel import crop_resize_kernel
     from facerec_torch.ops.warp_fast import crop_resize_matmul_batched
 
+    calls = record_step(pipe, x, r, ("crop_resize",))["crop_resize"]
     rows = []
-    for site, args in zip(CROP_SITES, record_crops(pipe, x, r)):
+    for site, (args, _) in zip(CROP_SITES, calls):
         images, boxes, out, out_dtype = args
         values = boxes.shape[0] * boxes.shape[1] * out * out * images.shape[-1]
         written, read = values * out_dtype.itemsize, crop_read_bytes(images, boxes, out)
@@ -1361,73 +1301,17 @@ def time_crops(pipe, x, r) -> list[dict]:
     return rows
 
 
-def _epilogue_kind(a, kw: dict) -> str:
-    if kw.get("prelu") is not None:
-        return "stem" if kw.get("next_bn") is not None else "a"
-    if not kw.get("keep", True):
-        return "last"
-    return "b_downsample" if kw.get("shortcut_bn") is not None else "b_identity"
-
-
-def _ordered_bf16(t):
-    """bf16 values as integers in their order: neighbours differ by 1."""
-    import torch
-
-    i = t.contiguous().view(torch.int16).int()
-    return torch.where(i >= 0, i, -(i + 32768))
-
-
-def record_epilogues(pipe, crops) -> dict:
-    """Each epilogue pass of one eager embed of ``crops``, held against the
-    plain route as it runs (the largest gap in bf16 ulps and the values that
-    differ), grouped by kind and shape: {(kind, shape): {"calls", "args"
-    (the first call's map and keywords), "max_ulp", "differ"}}. The launch
-    count stays as it was."""
-    import torch
-
-    from facerec_torch.models import iresnet
-    from facerec_torch.ops import iresnet_epilogue as ep
-
-    kernel, n0, groups = ep.iresnet_epilogue, ep.iresnet_epilogue.launches, {}
-
-    def recording(a, bn, **kw):
-        out = kernel(a, bn, **kw)
-        want = ep.iresnet_epilogue_plain(a, bn, **kw)
-        key = (_epilogue_kind(a, kw), tuple(a.shape))
-        g = groups.setdefault(key, {"calls": 0, "args": None, "max_ulp": 0, "differ": 0,
-                                    "values": 0})
-        if g["args"] is None:
-            g["args"] = (a.clone(), bn, {k: v.clone() if torch.is_tensor(v) else v
-                                         for k, v in kw.items()})
-        g["calls"] += 1
-        for x, y in zip(out, want):
-            if x is not None:
-                ulps = (_ordered_bf16(x) - _ordered_bf16(y)).abs()
-                g["max_ulp"] = max(g["max_ulp"], int(ulps.max().item()))
-                g["differ"] += int((ulps > 0).sum().item())
-                g["values"] += ulps.numel()
-        return out
-
-    iresnet.iresnet_epilogue = recording
-    try:
-        with torch.no_grad():
-            pipe.embedder.embed(crops)
-    finally:
-        iresnet.iresnet_epilogue = kernel
-        ep.iresnet_epilogue.launches = n0
-    return groups
-
-
 def time_epilogues(pipe, x, r) -> dict:
     """IResNet-100's epilogue passes on a serve step's own 112 px crops: each
-    kind and shape of pass (``record_epilogues``) held against the plain
-    route, then timed: CUDA-event ms over back-to-back calls, device ms
-    (profiler) and host ms per launch, the plain route's ms, and the bound:
-    the maps read and written over 3.35 TB/s, or ``EPILOGUE_VALUE_OPS`` f32
-    operations a value over the CUDA-core rate; an embed's sums over its 99
-    launches."""
+    kind and shape of pass (``multichip.record_epilogues``: its calls and
+    its gap to the plain route in bf16 ulps), timed: CUDA-event ms over
+    back-to-back calls, device ms (profiler) and host ms per launch, the
+    plain route's ms, and the bound: the maps read and written over the HBM
+    peak, or ``EPILOGUE_VALUE_OPS`` f32 operations a value over the
+    CUDA-core rate; an embed's sums over its passes."""
     import torch
 
+    from facerec_torch.multichip import record_epilogues
     from facerec_torch.ops.iresnet_epilogue import iresnet_epilogue, iresnet_epilogue_plain
 
     s = pipe.config.embed_size
@@ -1462,11 +1346,7 @@ def time_epilogues(pipe, x, r) -> dict:
         print("epilogue time: " + json.dumps(row), flush=True)
         del a, kw
     calls = sum(r_["calls"] for r_ in rows)
-    if calls != IRESNET_EPILOGUES:
-        raise AssertionError(f"an embed made {calls} epilogue passes, not {IRESNET_EPILOGUES}")
     worst = max(r_["max_ulp"] for r_ in rows)
-    if worst > 1:
-        raise AssertionError(f"an epilogue pass is {worst} bf16 ulps from its plain route")
     per_embed = {k: sum(r_[k] * r_["calls"] for r_ in rows)
                  for k in ("ms", "device_ms", "host_ms", "plain_ms", "bound_ms", "mb")}
     return {"rows": rows, "per_embed": per_embed, "max_ulp": worst,
@@ -1475,49 +1355,58 @@ def time_epilogues(pipe, x, r) -> dict:
 
 def iresnet_epilogues(dev, frames, card: str) -> dict:
     """IResNet-100 served at 112 px (the arcface_ir100 cell's embedder) with
-    a bf16 gallery of ``SERVE_ROWS`` rows: one profiled replay launches the
-    epilogue kernel 99 times and no bf16 BatchNorm (the head's f32
-    ``features`` keeps PyTorch's); each pass held and timed on the step's
-    own crops (``time_epilogues``)."""
+    a bf16 gallery of ``SERVE_ROWS`` rows, half enrolled from seeded host
+    normals (``enroll_host``): one replay with the counts from 0 launches
+    what ``multichip.step_launches`` says (99 epilogue passes), by the
+    counts and by the profiler's kernel names, and no bf16 BatchNorm
+    (the head's f32 ``features`` keeps PyTorch's); every kernel held on the
+    step's own inputs (``multichip.hold_kernels``: each pass within one
+    bf16 ulp); each kind of pass timed (``time_epilogues``)."""
+    import numpy as np
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
-    from facerec_torch.utils.profiling import device_ops
+    from facerec_torch.multichip import hold_kernels, step_launches
+    from facerec_torch.ops import kernels
 
     t0 = time.perf_counter()
     pipe = build_pipeline(dev, FRAME_HW, FACES, torch.bfloat16,
                           dict(gallery_capacity=SERVE_ROWS, top_k=5, embed_size=IRESNET_CROP),
                           embedder="iresnet")
+    enroll_host(np.random.default_rng(7))(pipe, SERVE_ROWS // 2)
     x = pipe.upload(frames)
-    r = pipe.run_step(x)  # the warm-ups and the capture
+    pipe.run_step(x)  # the warm-ups, the capture, one replay
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        pipe.run_step(x)
-        torch.cuda.synchronize()
-    kernels = device_ops(prof)
-    replay = {"iresnet_epilogue": sum(e.count for e in kernels if "iresnet_epilogue" in e.key),
-              "batch_norm_bf16": sum(e.count for e in kernels if BF16_BATCH_NORM in e.key),
-              "kernels_traced": sum(e.count for e in kernels)}
-    print("iresnet: launches per replay: " + json.dumps(replay), flush=True)
-    if replay["iresnet_epilogue"] != IRESNET_EPILOGUES or replay["batch_norm_bf16"]:
-        raise AssertionError(f"one IResNet-100 replay launched {replay}")
+    kernels.zero()
+    r = pipe.run_step(x)
+    torch.cuda.synchronize()
+    launches, want = kernels.launches(), step_launches(pipe)
+    print(f"launches in one replay (serve_iresnet100): {launches}", flush=True)
+    if launches != want:
+        raise AssertionError(f"one IResNet-100 replay launched {launches}, not {want}")
+    replay = replay_launches("serve_iresnet100", pipe, x, want, absent=(BF16_BATCH_NORM,))
+    held = hold_kernels(pipe, x, r)
+    print("serve_iresnet100: kernels held: " + json.dumps(held), flush=True)
     timed = time_epilogues(pipe, x, r)
-    out = {"launches_per_replay": replay, "phase_s": time.perf_counter() - t0} | timed
+    out = {"launches": launches, "replay_launches": replay, "held": held,
+           "phase_s": time.perf_counter() - t0} | timed
     print("iresnet epilogue: " + json.dumps({k: v for k, v in out.items() if k != "rows"}
                                             | {"card": card}), flush=True)
     return out
 
 
-def replay_launches(path: str, pipe, x, want: dict) -> dict:
+def replay_launches(path: str, pipe, x, want: dict, absent: tuple[str, ...] = ()) -> dict:
     """Launches of each port kernel in one replay of the captured step, by
-    the kernel names torch.profiler reports (K1's first pass, K2, the NMS
-    kernel, the crop kernel); where the profiler reports no kernel under
-    replay, counted on the eager step instead, and said so."""
+    the kernel names torch.profiler reports (``ops.kernels.TABLE``), which
+    must be ``want``, and of the kernels whose names hold one of ``absent``,
+    which must be none; where the profiler reports no kernel under replay,
+    counted on the eager step instead, and said so."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from facerec_torch.multichip import KERNEL_NAMES as names
+    from facerec_torch.ops.kernels import TABLE
     from facerec_torch.utils.profiling import device_ops
+
+    names = {k: t.profiler_name for k, t in TABLE.items()} | {n: n for n in absent}
 
     def count(fn):
         fn()
@@ -1536,7 +1425,7 @@ def replay_launches(path: str, pipe, x, want: dict) -> dict:
         source = "the eager step: the profiler reported no kernel under replay"
     out = {"by_kernel_name": got, "kernels_traced": total, "source": source}
     print(f"{path}: launches per replay: " + json.dumps(out), flush=True)
-    if got != want:
+    if got != want | dict.fromkeys(absent, 0):
         raise AssertionError(f"one {path} replay launched {got} by kernel name, not {want}")
     return out
 
@@ -1616,47 +1505,6 @@ def embed_captured(pipe, x) -> dict:
     return res
 
 
-def hold_path_kernels(path: str, pipe, x, r) -> dict:
-    """Each kernel a serve path launched, against its plain version on the
-    inputs that path gave it: K1 on the step's embeddings, gallery and count
-    (``_k1_case``'s bars); the NMS kernel bit for bit on each of its five
-    calls (``hold_nms``); the crop kernel bit for bit on each of its three
-    calls (two precise; ``multichip.hold_crops``); K2 (fast align only) bit
-    for bit on the patches, angles and centres that the step's boxes and
-    landmarks give. Returns the max abs error of each, and the NMS rounds
-    per call (max, mean)."""
-    import torch
-
-    from facerec_torch.multichip import hold_crops
-    from facerec_torch.ops.warp_fast import _align_prep, rotate_patches
-    from facerec_torch.ops.warp_kernel import rotate_patches_kernel
-
-    cfg = pipe.config
-    q = r.embeddings.reshape(-1, r.embeddings.shape[-1]).float()
-    # a gallery sharded over the mesh's model axis: this rank's rows and count
-    err = {"gallery_topk": _k1_case(path, q, pipe.gallery.embeddings, pipe.gallery.local_count,
-                                    cfg.top_k, 2e-3)[0]}
-    sites = hold_nms(path, pipe, x)
-    err["nms_suppress"] = 0.0  # hold_nms raised on any differing keep bit or round count
-    err["nms_rounds"] = {k: [v["rounds_max"], v["rounds_mean"]] for k, v in sites.items()}
-    crops = hold_crops(pipe, x, r)
-    err["crop_resize"] = 0.0  # hold_crops raised on any differing value
-    print(f"crop {path}: bit for bit on the calls {crops}", flush=True)
-    if not pipe.precise_align:
-        lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)
-        patches, angle, centers = _align_prep(x.float(), r.boxes, lm, cfg.embed_size, 0.15)
-        args = (patches.reshape(-1, *patches.shape[2:]), angle.reshape(-1),
-                centers.reshape(-1, 2), cfg.embed_size)
-        got, ref = rotate_patches_kernel(*args), rotate_patches(*args)
-        exact = torch.equal(got, ref)
-        err["shear_rotate"] = (got.float() - ref.float()).abs().max().item()
-        print(f"K2 {path}: N={args[0].shape[0]} P={args[0].shape[1]} bit_exact={exact}",
-              flush=True)
-        if not exact:
-            raise AssertionError(f"K2 disagrees with its plain version on the {path} path")
-    return err
-
-
 def precise_agrees(pipe, frames, r) -> dict:
     """The precise step's result ``r`` against the fast path on the same
     frames: the same valid slots, and embedding cosine > ``PRECISE_COS`` for
@@ -1687,14 +1535,19 @@ def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
     serve step at bench.py's configuration with a bf16 gallery of
     ``capacity`` rows, half filled by ``enroll(pipe, n)``, through the
     captured step (``process``): the first call captures it (its peak
-    memory is printed); one replay with the counts from 0 launches K1 once,
-    K2 once (0 precise), the NMS kernel 5 times and the crop kernel 3 times
-    (2 precise), which the profiler's kernel names confirm; the replay's
-    result equals the eager step's. Then faces/s and the busy share
-    captured and eager, in turns. Returns the
-    kernels' launches in one replay, step stats and the pipeline."""
+    memory is printed); one replay with the counts from 0 launches what
+    ``multichip.step_launches`` says (K1 once, K2 once (0 precise), the NMS
+    kernel 5 times, the crop kernel 3 times (2 precise), no epilogue pass),
+    which the profiler's kernel names confirm; the replay's result equals
+    the eager step's; every kernel held on the path's own inputs
+    (``multichip.hold_kernels``). Then faces/s and the busy share captured
+    and eager, in turns. Returns the kernels' launches in one replay, step
+    stats and the pipeline."""
     import numpy as np
     import torch
+
+    from facerec_torch.multichip import hold_kernels, step_launches
+    from facerec_torch.ops import kernels
 
     pipe = build_pipeline(dev, FRAME_HW, FACES, torch.bfloat16,
                           dict(gallery_capacity=capacity, top_k=5, embed_size=160),
@@ -1715,13 +1568,12 @@ def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
     print(f"first step (warm-up, capture, replay) {capture_s:.2f} s; memory "
           f"{json.dumps(memory)}", flush=True)
 
-    _zero_launches()
+    kernels.zero()
     r = pipe.process(frames)
     torch.cuda.synchronize()
-    launches = _launches()
+    launches = kernels.launches()
     print(f"launches in one replay ({path}, gallery {capacity} rows): {launches}", flush=True)
-    # the exact warp takes the place of K2
-    want = _step_launches(precise)
+    want = step_launches(pipe)
     if launches != want:
         raise AssertionError(f"the {path} step launched {launches}, not {want}")
 
@@ -1747,7 +1599,8 @@ def serve(dev, frames, capacity: int, enroll, path: str, agree: bool = False,
     extra = {"graph_equal": graph_agrees(path, pipe, x, r),
              "replay_launches": replay_launches(path, pipe, x, want),
              "capture_s": capture_s, "memory": memory}
-    held = hold_path_kernels(path, pipe, x, r)
+    held = hold_kernels(pipe, x, r)
+    print(f"{path}: kernels held: " + json.dumps(held), flush=True)
     extra["kernels_held"] = held
     if path == "serve":
         extra["nms_time"] = time_nms(pipe, x)
@@ -1827,27 +1680,41 @@ def bench_cli(card: str) -> dict:
     return rows
 
 
+def _went_through(what: str, launches: dict, pipe) -> None:
+    """Over some steps of ``pipe``: every kernel that its step launches
+    (``multichip.step_launches``) was launched, and no other."""
+    from facerec_torch.multichip import step_launches
+
+    if {k: bool(n) for k, n in launches.items()} != {k: bool(n) for k, n in
+                                                      step_launches(pipe).items()}:
+        raise AssertionError(f"the {what} launched {launches}")
+
+
 def bench_in_process(dev) -> tuple[dict, dict, dict]:
     """``facerec_torch.bench``'s ``prepare`` and ``measure`` in this process,
-    with every launch count set to 0 just before: K1, K2 and the NMS kernel
-    launched; the profiler's kernel names on one replay give K1 1, K2 1,
-    NMS 5 and the crop kernel 3; each kernel held against its plain version on the bench's own
-    inputs. Returns (launches over ``measure``, held errors, its result)."""
+    with every launch count set to 0 just before: each kernel of the step
+    launched and no other; the profiler's kernel names on one replay give
+    K1 1, K2 1, NMS 5, the crop kernel 3 and no epilogue pass; each kernel
+    held against its plain version on the bench's own inputs
+    (``multichip.hold_kernels``). Returns (launches over ``measure``, held
+    errors, its result)."""
     import torch
 
     from facerec_torch import bench
+    from facerec_torch.multichip import hold_kernels, step_launches
+    from facerec_torch.ops import kernels
 
     pipe, frames = bench.prepare(device=dev)
-    _zero_launches()
+    kernels.zero()
     out, note = bench.measure(pipe, frames)
     torch.cuda.synchronize()
-    launches = _launches()
-    if not all(launches.values()):
-        raise AssertionError(f"the bench path launched {launches}")
+    launches = kernels.launches()
+    _went_through("bench path", launches, pipe)
     x = pipe.upload(frames)
     r = pipe.process(frames)
-    replay = replay_launches("bench", pipe, x, _step_launches())
-    held = hold_path_kernels("bench", pipe, x, r)
+    replay = replay_launches("bench", pipe, x, step_launches(pipe))
+    held = hold_kernels(pipe, x, r)
+    print("bench: kernels held: " + json.dumps(held), flush=True)
     return launches, held, {"line": out, "note": note, "replay_launches": replay}
 
 
@@ -1958,6 +1825,8 @@ def identify_trained(dev, pipe, card: str) -> dict:
     from facerec_torch.data.datasets import _imagenet_normalize
     from facerec_torch.data.synthetic import _identity_params, make_synthetic_arrays, render_face
     from facerec_torch.models.arcface import build_embedder
+    from facerec_torch.multichip import K1_F32_TOL
+    from facerec_torch.ops import kernels
     from facerec_torch.ops.gallery import gallery_topk
     from facerec_torch.serve.app import _embedder_checkpoint
     from facerec_torch.serve.gallery import GalleryStore
@@ -1978,14 +1847,15 @@ def identify_trained(dev, pipe, card: str) -> dict:
             eq, eg = embedder.embed(xq), embedder.embed(xg)
         store = GalleryStore(capacity=SERVE_ROWS, dtype=dtype, device=dev)
         store.add_many_device(names, eg)
-        _zero_launches()
+        kernels.zero()
         _, idx = gallery_topk(eq, store.embeddings, store.count_device, k=5)
         torch.cuda.synchronize()
-        launches = _launches()
-        if launches["gallery_topk"] != 1:
-            raise AssertionError(f"identification did not go through K1 once: {launches}")
+        launches = kernels.launches()
+        if launches != dict.fromkeys(launches, 0) | {"gallery_topk": 1}:
+            raise AssertionError(f"identification did not go through K1 alone, once: "
+                                 f"{launches}")
         err = _k1_case(f"identify {str(dtype)[6:]}", eq, store.embeddings, store.count, 5,
-                       2e-3 if dtype == torch.bfloat16 else 1e-4)[0]
+                       K1_F32_TOL[dtype])[0]
         return int((idx[:, 0].cpu().numpy() == labels).sum()), {"k1_max_abs_err": err}
 
     trained, held = correct(build_embedder(checkpoint=ck, dtype=torch.float32, device=dev),
@@ -2102,6 +1972,7 @@ def fold(pipes, frames, card: str) -> dict:
     import torch
 
     from facerec_torch.models.fold import FoldedBias, fold_batchnorm
+    from facerec_torch.ops import kernels
 
     paths = ("serve", "serve_facenet")
     crops_of = {}
@@ -2113,7 +1984,7 @@ def fold(pipes, frames, card: str) -> dict:
             crops_of[path] = pipe.align(x, d.boxes, d.landmarks).reshape(
                 -1, pipe.config.embed_size, pipe.config.embed_size, 3)
     out = {}
-    _zero_launches()
+    kernels.zero()
     for path in paths:
         size, crops = pipes[path].config.embed_size, crops_of.pop(path)
         unfolded = copy.deepcopy(pipes[path].embedder)
@@ -2133,7 +2004,7 @@ def fold(pipes, frames, card: str) -> dict:
                      "busy_share_unfolded_folded": [b["device_busy_share"] for b in busy],
                      "min_cos": cos.min().item()}
         del unfolded, folded, crops
-    launches = _launches()
+    launches = kernels.launches()
     print("fold: " + json.dumps(out | {"launches": launches, "card": card}), flush=True)
     for path, r in out.items():
         if not r["min_cos"] > 1.0 - FOLD_COS:
@@ -2379,15 +2250,16 @@ def evaluate(dev, root: Path, checkpoints: Path, model_name: str, cfg, out_dir: 
     from facerec_torch.config import EvalConfig
     from facerec_torch.data.datasets import ImageFolderIndex
     from facerec_torch.eval.engine import evaluate_model, predict_image
+    from facerec_torch.ops import kernels
 
     ecfg = EvalConfig(model_type="arcface", model_name=model_name, image_size=cfg.image_size)
-    _zero_launches()
+    kernels.zero()
     t0 = time.perf_counter()
     res = evaluate_model(ecfg, root, checkpoints_root=checkpoints, outputs_root=out_dir,
                          return_predictions=True, device=dev)
     torch.cuda.synchronize()
     eval_s = time.perf_counter() - t0
-    launches = _launches()
+    launches = kernels.launches()
     index = ImageFolderIndex.build(root / "test")
     yhat = res["_predictions"]["yhat"]
     picks = list(range(0, len(index), max(len(index) // 8, 1)))[:8]
@@ -2419,6 +2291,7 @@ def train(dev, card: str) -> tuple[dict, dict, dict, dict]:
 
     from facerec_torch.data.native_loader import NativeClassificationBatcher
     from facerec_torch.data.synthetic import write_synthetic_imagefolder
+    from facerec_torch.ops import kernels
     from facerec_torch.train.engine import _make_batchers, _run_epoch, train_model
     from facerec_torch.train.steps import make_train_step
 
@@ -2432,7 +2305,7 @@ def train(dev, card: str) -> tuple[dict, dict, dict, dict]:
         batcher = _make_batchers(root, cfg)[0]["train"]  # the trainer's own choice
         loader = "native" if isinstance(batcher, NativeClassificationBatcher) else "pil"
         print(f"train: the trainer loads with the {loader} batcher", flush=True)
-        _zero_launches()
+        kernels.zero()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         out = train_model(cfg, root, checkpoints_root=Path(td) / "checkpoints",
@@ -2441,7 +2314,7 @@ def train(dev, card: str) -> tuple[dict, dict, dict, dict]:
         train_s = time.perf_counter() - t0
         peak = torch.cuda.max_memory_allocated(dev)
         hist = out["history"]
-        launches = _launches()
+        launches = kernels.launches()
         print("train: epochs " + json.dumps([{k: r[k] for k in (
             "epoch", "train_loss", "train_acc", "val_loss", "val_acc", "lr", "time_elapsed")}
             for r in hist]), flush=True)
@@ -2487,7 +2360,7 @@ def train(dev, card: str) -> tuple[dict, dict, dict, dict]:
         "device_busy_share_eager": timed["device_busy_share_eager"],
         "device_ms_per_step_eager": timed["device_ms_per_step_eager"],
         "gflop_per_step": flops / 1e9, "model_tflops": tflops,
-        "bf16_peak_share": tflops / (BF16_TC_FLOPS / 1e12),
+        "bf16_peak_share": tflops / (PEAK_BF16_FLOPS / 1e12),
         "epoch_images_per_s_with_loading": len(index) / epoch_s,
         "loader_alone_images_per_s": alone,
         "device_busy_share": timed["device_busy_share"],
@@ -2606,8 +2479,9 @@ def zoo(dev, root: Path, checkpoints: Path, out_dir: Path, card: str) -> dict:
     import torch
 
     from facerec_torch.models.ensemble import create_pretrained_ensemble
+    from facerec_torch.ops import kernels
 
-    _zero_launches()
+    kernels.zero()
     t0 = time.perf_counter()
     rows = {}
     for mt in ZOO_TYPES:
@@ -2626,7 +2500,7 @@ def zoo(dev, root: Path, checkpoints: Path, out_dir: Path, card: str) -> dict:
                         **zoo_evaluate(dev, "ensemble", root, checkpoints, out_dir, model=ens)}
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    launches = _launches()
+    launches = kernels.launches()
     for row in rows.values():
         print("zoo: " + json.dumps(row | {"card": card}), flush=True)
     if any(launches.values()):
@@ -2857,8 +2731,9 @@ def tune(dev, root: Path, checkpoints: Path, work: Path, card: str) -> dict:
     import torch
 
     from facerec_torch.data.datasets import ClassificationBatcher, ImageFolderIndex
+    from facerec_torch.ops import kernels
 
-    _zero_launches()
+    kernels.zero()
     t0 = time.perf_counter()
     stats = {"lr_finder": tune_lr_finder(dev, root, checkpoints)}
     cfg = arcface_synth_config()
@@ -2872,7 +2747,7 @@ def tune(dev, root: Path, checkpoints: Path, work: Path, card: str) -> dict:
     stats["visualize"] = tune_visualize(dev, root, checkpoints, work)
     torch.cuda.synchronize()
     stats["seconds"] = time.perf_counter() - t0
-    stats["launches_of_port_kernels"] = _launches()
+    stats["launches_of_port_kernels"] = kernels.launches()
     print("tune: " + json.dumps({k: stats[k] for k in ("seconds", "launches_of_port_kernels")}
                                 | {"lr_finder": {k: stats["lr_finder"][k] for k in (
                                        "suggested_lr", "max_lr", "steps_swept",
@@ -2991,6 +2866,7 @@ def prep(dev, card: str) -> dict:
     from facerec_torch.config import PreprocessingConfig
     from facerec_torch.data import preprocess as pp
     from facerec_torch.detect.weights import load_default_detector
+    from facerec_torch.ops import kernels
     from facerec_torch.ops.augment import AugmentParams, apply_augment, draw_augment
 
     cfg = PreprocessingConfig()
@@ -3002,7 +2878,7 @@ def prep(dev, card: str) -> dict:
         det = load_default_detector((pp.WORK_SIZE, pp.WORK_SIZE), cfg.min_face_size,
                                     cfg.detection_thresholds, device=dev)
         pre = pp.BatchPreprocessor(cfg, det, batch_size=PREP_BATCH, device=dev)
-        _zero_launches()
+        kernels.zero()
         t_all = time.perf_counter()
         pre.process_batch(photos[:PREP_BATCH])  # warm-up
         torch.cuda.synchronize()
@@ -3022,7 +2898,7 @@ def prep(dev, card: str) -> dict:
         torch.cuda.synchronize()
         raw_s = time.perf_counter() - t0
         phase_s = time.perf_counter() - t_all
-        launches = _launches()
+        launches = kernels.launches()
         files = {split: sorted(q.name for q in (out / "ds0" / split).rglob("*.jpg"))
                  for split in ("train", "val", "test")}
         aug = sum("_aug" in f for f in files["train"])
@@ -3059,9 +2935,10 @@ def prep(dev, card: str) -> dict:
             and aug_err <= AUG_ATOL):
         raise AssertionError(f"the prep path on the card disagrees with the CPU: {agree}, "
                              f"augment {aug_err}")
-    if launches["gallery_topk"] or launches["shear_rotate"] or not launches["nms_suppress"]:
-        raise AssertionError(f"the prep path launched K1 or K2, or detected without the NMS "
-                             f"kernel: {launches}")
+    if (launches["gallery_topk"] or launches["shear_rotate"] or launches["iresnet_epilogue"]
+            or not launches["nms_suppress"]):
+        raise AssertionError(f"the prep path launched K1, K2 or an epilogue pass, or detected "
+                             f"without the NMS kernel: {launches}")
     return stats
 
 
@@ -3109,10 +2986,11 @@ def detector(dev, card: str) -> dict:
     from facerec_torch.detect.weights import (
         load_detector_params_with_source, save_detector_params,
     )
+    from facerec_torch.ops import kernels
 
     nets = (("pnet", PNet, 12, 0, False), ("rnet", RNet, 24, 1, False),
             ("onet", ONet, 48, 2, True))
-    _zero_launches()
+    kernels.zero()
     t_all = time.perf_counter()
     params, per_net = {}, {}
     for name, cls, size, seed, lm in nets:
@@ -3144,7 +3022,7 @@ def detector(dev, card: str) -> dict:
         ious.append(float(_iou(out.boxes[i, bi].cpu().numpy(), boxes[i])))
     torch.cuda.synchronize()
     phase_s = time.perf_counter() - t_all
-    launches = _launches()
+    launches = kernels.launches()
     agree = {name: _net_agrees(dev, cls, size, seed, lm) for name, cls, size, seed, lm in nets}
     stats = {"route": "train_net x 3 + save_detector_params + MTCNN.detect",
              "scenes": DET_SCENES, "steps": DET_STEPS, "batch": DET_BATCH, "nets": per_net,
@@ -3159,9 +3037,10 @@ def detector(dev, card: str) -> dict:
            if max(v["loss_max_rel"], v["param_rel"]) > DET_RTOL}
     if bad:
         raise AssertionError(f"train_net on the card disagrees with the CPU: {bad}")
-    if launches["gallery_topk"] or launches["shear_rotate"] or not launches["nms_suppress"]:
-        raise AssertionError(f"the detector path launched K1 or K2, or detected without the "
-                             f"NMS kernel: {launches}")
+    if (launches["gallery_topk"] or launches["shear_rotate"] or launches["iresnet_epilogue"]
+            or not launches["nms_suppress"]):
+        raise AssertionError(f"the detector path launched K1, K2 or an epilogue pass, or "
+                             f"detected without the NMS kernel: {launches}")
     return stats
 
 
@@ -3205,18 +3084,18 @@ def demo(dev, bench_pipe, frames) -> tuple[dict, dict]:
     import numpy as np
     import torch
 
+    from facerec_torch.multichip import hold_kernels
+    from facerec_torch.ops import kernels
     from facerec_torch.serve.app import (build_default_pipeline, measure_demo_fps,
                                          synthetic_frame_source)
 
-    _zero_launches()
+    kernels.zero()
     fps = measure_demo_fps(DEMO_FRAMES, device=dev)
     torch.cuda.synchronize()
-    launches = _launches()
+    launches = kernels.launches()
     print(f"demo: {json.dumps(fps)}; launches {launches}", flush=True)
-    if min(launches.values()) < 1:
-        raise AssertionError(f"the demo did not go through every kernel: {launches}")
-
     pipe = build_default_pipeline(FRAME_HW, device=dev)
+    _went_through("demo", launches, pipe)
     src = synthetic_frame_source(FRAME_HW)
     two = np.stack([src(), src()])
     # a half-filled gallery that holds the first frame's face, lightly noised
@@ -3235,7 +3114,8 @@ def demo(dev, bench_pipe, frames) -> tuple[dict, dict]:
     print(f"demo: replayed packed step against eager: equal={packed_equal}", flush=True)
     if not packed_equal:
         raise AssertionError("the demo's replayed packed step differs from the eager step")
-    held = hold_path_kernels("demo", pipe, x, r)
+    held = hold_kernels(pipe, x, r)
+    print("demo: kernels held: " + json.dumps(held), flush=True)
 
     bench = bench_pipe.benchmark(frames, iters=6, warmup=1)
     transfer = bench_pipe.benchmark_transfer(frames, iters=6, warmup=1)
@@ -3286,7 +3166,7 @@ def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time,
     crop kernel's on each of its three, ``crop_time``, its headline at the
     align call, the largest; the IResNet epilogue's, ``epilogues``, on an
     IResNet-100 embed of the serve batch, its headline the sum over the
-    embed's 99 passes)."""
+    embed's passes)."""
     from facerec_torch.ops.warp_kernel import rotate_patches_kernel
     from facerec_torch.ops.warp_fast import rotate_patches
 
@@ -3359,11 +3239,11 @@ def kernel_rows(k1_err, k1_sizes, k2_in, k2_err, launches, held, nms_time,
          "sites": crop_time},
         {"name": "iresnet_epilogue", "route": "cuda",
          "source": "facerec_torch/csrc/iresnet_epilogue.cu", "replaces": None,
-         "launches": epilogues["launches_per_replay"]["iresnet_epilogue"],
-         "launches_by_path": {"serve_iresnet100": IRESNET_EPILOGUES},
+         "launches": launches["serve_iresnet100"]["iresnet_epilogue"],
+         "launches_by_path": {k: v["iresnet_epilogue"] for k, v in launches.items()},
          "max_ulp": epilogues["max_ulp"], "differ_share": epilogues["differ_share"],
          "shape": f"an IResNet-100 embed of {BATCH * FACES} crops of {IRESNET_CROP} px "
-                  f"({IRESNET_EPILOGUES} passes)",
+                  f"({launches['serve_iresnet100']['iresnet_epilogue']} passes)",
          **{key: epilogues["per_embed"][key] for key in ("ms", "device_ms", "host_ms",
                                                          "plain_ms", "bound_ms")},
          "bound_by": "bytes", "library_ms": None, "passes": epilogues["rows"]},
@@ -3472,8 +3352,9 @@ def mesh_one_rank(dev, serve_pipe, frames, rows) -> tuple[dict, object]:
     ``FacePipeline(mesh=(1, 1))``, captured (its first call) and replayed:
     one replay against the plain pipeline with the same detector, embedder
     and gallery, ``torch.equal`` on every field, and against the eager mesh
-    step, ``torch.equal`` too; one replay launches K1 and K2 once and the
-    NMS kernel five times, by the counts and by the profiler's kernel names;
+    step, ``torch.equal`` too; one replay launches what
+    ``multichip.step_launches`` says, by the counts and by the profiler's
+    kernel names;
     one f32 ArcFace train step through the mesh path against the plain
     step, ``torch.equal`` on loss, grad_norm and every parameter (cuDNN set
     deterministic for the two, so that its backward sums in one order).
@@ -3484,6 +3365,8 @@ def mesh_one_rank(dev, serve_pipe, frames, rows) -> tuple[dict, object]:
     import torch.distributed as dist
 
     from facerec_torch.config import MeshConfig
+    from facerec_torch.multichip import step_launches
+    from facerec_torch.ops import kernels
     from facerec_torch.parallel.mesh import build_mesh
     from facerec_torch.serve.pipeline import FacePipeline
 
@@ -3501,14 +3384,14 @@ def mesh_one_rank(dev, serve_pipe, frames, rows) -> tuple[dict, object]:
             torch.cuda.synchronize()
             if not pipe._graphs:
                 raise AssertionError("the (1, 1) mesh step was not captured")
-            _zero_launches()
+            kernels.zero()
             r = pipe.process(frames)
             torch.cuda.synchronize()
-            launches = _launches()
+            launches = kernels.launches()
             same = {f: torch.equal(a, b) for f, a, b in zip(r._fields, r, plain)}
             x = pipe.upload(frames)
             graph_agrees("mesh_1x1", pipe, x, r)
-            replay_launches("mesh_1x1", pipe, x, _step_launches())
+            replay_launches("mesh_1x1", pipe, x, step_launches(pipe))
             deterministic = torch.backends.cudnn.deterministic
             torch.backends.cudnn.deterministic = True
             try:
@@ -3530,7 +3413,7 @@ def mesh_one_rank(dev, serve_pipe, frames, rows) -> tuple[dict, object]:
     print("mesh 1x1 (nccl): " + json.dumps(out), flush=True)
     if not (all(same.values()) and all(train_same.values())):
         raise AssertionError(f"the mesh path at world size 1 differs from the plain path: {out}")
-    if launches != _step_launches():
+    if launches != step_launches(serve_pipe):
         raise AssertionError(f"the (1, 1) mesh step launched {launches}")
     return launches, plain
 
@@ -3549,15 +3432,19 @@ def _mesh_serve(pipe, frames, path: str) -> tuple:
     together on one card)."""
     import torch
 
+    from facerec_torch.multichip import hold_kernels
+    from facerec_torch.ops import kernels
+
     x = pipe.upload(frames)
     pipe.step(x)
     torch.cuda.synchronize()
     pipe.mesh.barrier()
-    _zero_launches()
+    kernels.zero()
     r = pipe.step(x)
     torch.cuda.synchronize()
-    launches = _launches()
-    held = hold_path_kernels(path, pipe, x, r)
+    launches = kernels.launches()
+    held = hold_kernels(pipe, x, r)
+    print(f"{path}: kernels held: " + json.dumps(held), flush=True)
     pipe.mesh.barrier()
     stats = pipe.benchmark(frames, iters=5, warmup=1)
     return r, launches, held, stats
@@ -3575,6 +3462,7 @@ def mesh_rank(rank: int, world: int, tmp: str) -> None:
 
     sys.path.insert(0, str(ROOT))
     from facerec_torch.config import MeshConfig
+    from facerec_torch.ops import kernels
     from facerec_torch.parallel.mesh import build_mesh, shard_batch
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3617,13 +3505,13 @@ def mesh_rank(rank: int, world: int, tmp: str) -> None:
     # deterministic cuDNN, as for the one-process references: a rerun then
     # gives the same numbers (default cuDNN sums some gradients with atomics)
     torch.backends.cudnn.deterministic = True
-    _zero_launches()
+    kernels.zero()
     state = _mesh_train_state(mesh.device, mesh)
     batch = _mesh_train_batch()
     per_step, free = _mesh_train_per_step(state, batch, mesh)
     timed = _mesh_train_steps(state, shard_batch(batch, mesh), mesh)  # 3 more steps
     res = {"per_step": per_step, "steps": free, "ms_per_step": timed["ms_per_step"],
-           "launches": _launches()}
+           "launches": kernels.launches()}
     out["2x1_train"] = res
     torch.save(out, f"{tmp}/rank{rank}.pt")
     dist.destroy_process_group()
@@ -3692,7 +3580,7 @@ def mesh(dev, frames, serve_pipe, rows, card) -> tuple[dict, dict, dict]:
     import numpy as np
     import torch
 
-    from facerec_torch.multichip import near_ties
+    from facerec_torch.multichip import near_ties, step_launches
     from facerec_torch.serve.pipeline import FacePipeline
 
     t0 = time.perf_counter()
@@ -3807,7 +3695,7 @@ def mesh(dev, frames, serve_pipe, rows, card) -> tuple[dict, dict, dict]:
         raise AssertionError(f"the (2, 1) train steps disagree with one process: "
                              f"{stats['2x1_train']}")
     for key, got in launches.items():
-        if got != _step_launches(steps=0 if "train" in key else 1):
+        if got != step_launches(serve_pipe, steps=0 if "train" in key else 1):
             raise AssertionError(f"the {key} layout launched {got}")
     held = {f"mesh_{lay}_rank{r}": got[lay]["held"] for r, got in enumerate(ranks)
             for lay in ("1x2", "2x1")}
@@ -3959,6 +3847,8 @@ def main() -> int:
         | {"accuracy_f32": identified["accuracy_f32"], "card": card}), flush=True)
     torch.cuda.empty_cache()
     epilogues = iresnet_epilogues(dev, frames, card)
+    launches["serve_iresnet100"] = epilogues["launches"]
+    held["serve_iresnet100"] = epilogues["held"]
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     bench_rows = bench_cli(card)

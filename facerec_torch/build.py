@@ -5,7 +5,8 @@ library, compiled by ``nvcc`` for ``sm_90a`` into ``build/`` at the repository
 root and loaded with ``ctypes``. All sources compile in parallel (one
 ``nvcc`` process each). The host JPEG loader, ``csrc/loader.cpp``, is built
 the same way by ``g++`` against libjpeg, and needs no CUDA toolkit. A
-library newer than its source is reused. Nothing here runs at import time:
+library newer than its source is reused. ``function`` binds a library's
+symbol once, with its argument types. Nothing here runs at import time:
 the first wrapper that launches a kernel (or the first native batcher)
 builds it.
 """
@@ -13,6 +14,7 @@ builds it.
 from __future__ import annotations
 
 import ctypes
+import functools
 import os
 import shutil
 import subprocess
@@ -21,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build"
-SOURCES = ("gallery_topk", "shear_rotate", "nms_fixed_point", "crop_resize", "iresnet_epilogue")
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
 LOADER = "loader"
 GXX_FLAGS = ["-O3", "-shared", "-fPIC", "-std=c++17"]
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -108,6 +110,21 @@ def library(name: str) -> ctypes.CDLL:
             build((name,))
         _loaded[name] = ctypes.CDLL(str(_lib_path(name)))
     return _loaded[name]
+
+
+@functools.cache
+def function(lib: str | Path | ctypes.CDLL, symbol: str, argtypes: tuple, restype=ctypes.c_int):
+    """``symbol`` of a library with its argument and return types set, bound
+    once: ``lib`` is the name of one of this module's libraries (built
+    first if needed), the path of another shared library, or a loaded one."""
+    if isinstance(lib, str):
+        lib = library(lib)
+    elif isinstance(lib, Path):
+        lib = ctypes.CDLL(str(lib))
+    fn = lib[symbol]  # a pointer of its own: another binding of the symbol keeps its types
+    fn.argtypes = list(argtypes)
+    fn.restype = restype
+    return fn
 
 
 def check(err: int, what: str) -> None:

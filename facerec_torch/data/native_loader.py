@@ -17,38 +17,28 @@ step.
 from __future__ import annotations
 
 import ctypes
+from ctypes import POINTER, c_char_p, c_float, c_int, c_int32, c_int64, c_void_p
+from types import SimpleNamespace
 
 import numpy as np
 
 from facerec_torch import build
 
-_lib: ctypes.CDLL | None = None
+_SIGNATURES = {  # symbol: (argument types, return type)
+    "loader_create": ((POINTER(c_char_p), POINTER(c_int32), c_int64, c_int, c_int, c_int, c_int,
+                       c_int), c_void_p),
+    "loader_start_epoch": ((c_void_p, c_int64), None),
+    "loader_num_batches": ((c_void_p,), c_int64),
+    "loader_next_batch": ((c_void_p, POINTER(c_float), POINTER(c_int32), POINTER(c_float)),
+                          c_int),
+    "loader_destroy": ((c_void_p,), None),
+}
 
 
-def _load() -> ctypes.CDLL:
-    global _lib
-    if _lib is not None:
-        return _lib
-    lib = build.library(build.LOADER)
-    lib.loader_create.restype = ctypes.c_void_p
-    lib.loader_create.argtypes = [
-        ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int32), ctypes.c_int64,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-    ]
-    lib.loader_start_epoch.restype = None
-    lib.loader_start_epoch.argtypes = [ctypes.c_void_p, ctypes.c_int64]
-    lib.loader_num_batches.restype = ctypes.c_int64
-    lib.loader_num_batches.argtypes = [ctypes.c_void_p]
-    lib.loader_next_batch.restype = ctypes.c_int
-    lib.loader_next_batch.argtypes = [
-        ctypes.c_void_p,
-        ctypes.POINTER(ctypes.c_float), ctypes.POINTER(ctypes.c_int32),
-        ctypes.POINTER(ctypes.c_float),
-    ]
-    lib.loader_destroy.restype = None
-    lib.loader_destroy.argtypes = [ctypes.c_void_p]
-    _lib = lib
-    return lib
+def _load() -> SimpleNamespace:
+    """The library's functions, bound once (built first if needed)."""
+    return SimpleNamespace(**{name: build.function(build.LOADER, name, args, res)
+                              for name, (args, res) in _SIGNATURES.items()})
 
 
 def available() -> bool:

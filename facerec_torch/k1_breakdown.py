@@ -12,13 +12,13 @@ power limit. Needs a CUDA card and ``nvcc``.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import subprocess
 
 import torch
 
 from facerec_torch import build
+from facerec_torch.ops import kernels
 from facerec_torch.ops.gallery import bf16_splits
 
 EPILOGUE_START = "    wgmma_wait<0>();\n"
@@ -34,7 +34,7 @@ def _variants() -> dict[str, str]:
                                        EPILOGUE_START + "    if (count >= 0) continue;\n")}
 
 
-def _compile(variants: dict[str, str]) -> dict[str, ctypes.CDLL]:
+def _compile(variants: dict[str, str]) -> dict:
     out = build.BUILD_DIR / "k1_breakdown"
     out.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -49,11 +49,8 @@ def _compile(variants: dict[str, str]) -> dict[str, ctypes.CDLL]:
         log, _ = proc.communicate()
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for {name}:\n{log}")
-        fn = ctypes.CDLL(str(out / f"lib{name}.so")).gallery_topk_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, p, i, i, i, i, i, i, p, p, p, p, p]
-        fn.restype = i
-        libs[name] = fn
+        k1 = kernels.TABLE["gallery_topk"]
+        libs[name] = build.function(out / f"lib{name}.so", k1.symbol, k1.argtypes)
     return libs
 
 

@@ -151,8 +151,13 @@ class IResNet(nn.Module):
             x = self.features(self.fc(x.to(self.fc.weight.dtype)))
             if fused and profiling.enabled():
                 profiling.device_count("embed.fused_epilogues", torch.full(
-                    (), 1 + 2 * len(blocks), dtype=torch.int64, device=dev))
+                    (), self.fused_passes(), dtype=torch.int64, device=dev))
             return l2_normalize(x.float())
+
+    def fused_passes(self) -> int:
+        """The epilogue passes an embed on the fused route makes: the
+        stem's, then two a block (99 for IResNet-100)."""
+        return 1 + 2 * sum(len(getattr(self, f"layer{i}")) for i in range(1, 5))
 
     def forward(self, x_nhwc: torch.Tensor) -> torch.Tensor:
         return self.embed(x_nhwc)

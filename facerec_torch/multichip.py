@@ -22,9 +22,11 @@ are stopped), and each rank runs, in one order:
     each, the committed MTCNN weights in bf16, a full-width ResNet-18
     ArcFace at 160 px in bf16 from seed 1, top 5. Each layout's step is
     captured and replayed; the replay must equal the eager mesh step, one
-    replay must launch K1 once, K2 once, the NMS kernel five times and the
-    crop kernel three times by the profiler's kernel names, and each kernel
-    must hold against its plain version on the rank's own inputs. The results must agree with one
+    replay must launch what ``step_launches`` says (K1 once, K2 once, the
+    NMS kernel five times, the crop kernel three times, no epilogue pass)
+    by the counts and by the profiler's kernel names, and each kernel must
+    hold against its plain version on the rank's own inputs
+    (``hold_kernels``). The results must agree with one
     process on one card: (4, 1) each rank's valid slots and indices equal to
     one process's captured step on its 48 frames, embeddings within cosine
     ``COS_BAR``; (1, 4) and (2, 2) the merged top 5 equal to one process's
@@ -103,8 +105,7 @@ TRAIN_RTOL = 1e-3
 TIMED_STEPS = 20
 POOL = 3  # distinct train batches
 RANK_TIMEOUT_S = 900
-KERNEL_NAMES = {"gallery_topk": "topk_partial", "shear_rotate": "shear_rotate",
-                "nms_suppress": "nms_suppress", "crop_resize": "crop_resize"}
+K1_F32_TOL = {torch.bfloat16: 2e-3, torch.float32: 1e-4}  # K1 against f32 queries, by gallery
 NMS_SITES = ("per_scale", "cross_scale", "rnet", "large_face", "final")  # the detect's calls
 CROP_SITES = ("rnet", "onet", "align")  # the step's crop calls (the precise align takes none)
 # arcface_synth's configuration (outputs/checkpoints/arcface_synth) in the
@@ -330,28 +331,20 @@ def _rank_main(fn, rank: int, world: int, port: int, out: str, args) -> None:
 # -- the checks on a rank -------------------------------------------------------------------------
 
 
-def zero_launches() -> None:
-    from facerec_torch.ops.crop_kernel import crop_resize_kernel
-    from facerec_torch.ops.gallery import gallery_topk
-    from facerec_torch.ops.nms import nms_suppress
-    from facerec_torch.ops.warp_kernel import rotate_patches_kernel
+def step_launches(pipe, steps: int = 1) -> dict:
+    """The launches of each kernel of ``ops.kernels.TABLE`` that ``steps``
+    steps of ``pipe`` make on the card: K1 1 and K2 1 (0 on the precise
+    path) a step, the NMS kernel once for each of ``NMS_SITES``, the crop
+    kernel once for each of ``CROP_SITES`` (the first two on the precise
+    path), and the embedder's epilogue passes (``IResNet.fused_passes``: 99
+    for IResNet-100; none for other embedders)."""
+    from facerec_torch.models.iresnet import IResNet
 
-    gallery_topk.launches = rotate_patches_kernel.launches = nms_suppress.launches = 0
-    crop_resize_kernel.launches = 0
-
-
-def launches() -> dict:
-    from facerec_torch.ops.crop_kernel import crop_resize_kernel
-    from facerec_torch.ops.gallery import gallery_topk
-    from facerec_torch.ops.nms import nms_suppress
-    from facerec_torch.ops.warp_kernel import rotate_patches_kernel
-
-    return {"gallery_topk": gallery_topk.launches, "shear_rotate": rotate_patches_kernel.launches,
-            "nms_suppress": nms_suppress.launches, "crop_resize": crop_resize_kernel.launches}
-
-
-STEP_LAUNCHES = {"gallery_topk": 1, "shear_rotate": 1, "nms_suppress": len(NMS_SITES),
-                 "crop_resize": len(CROP_SITES)}
+    crops = len(CROP_SITES) - (1 if pipe.precise_align else 0)
+    passes = pipe.embedder.fused_passes() if isinstance(pipe.embedder, IResNet) else 0
+    return {"gallery_topk": steps, "shear_rotate": 0 if pipe.precise_align else steps,
+            "nms_suppress": len(NMS_SITES) * steps, "crop_resize": crops * steps,
+            "iresnet_epilogue": passes * steps}
 
 
 def profiled(fn, calls: int = 3) -> dict:
@@ -361,6 +354,7 @@ def profiled(fn, calls: int = 3) -> dict:
     cost lengthens the wall)."""
     from torch.profiler import ProfilerActivity, profile
 
+    from facerec_torch.ops.kernels import TABLE
     from facerec_torch.utils import profiling
 
     torch.cuda.synchronize()
@@ -374,139 +368,164 @@ def profiled(fn, calls: int = 3) -> dict:
     busy_us = sum(e.self_device_time_total for e in kernels)
     nccl_us = sum(e.self_device_time_total for e in kernels if "nccl" in e.key.lower())
     top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]
-    return {"by_kernel_name": {k: sum(e.count for e in kernels if n in e.key) / calls
-                               for k, n in KERNEL_NAMES.items()},
+    return {"by_kernel_name": {k: sum(e.count for e in kernels if t.profiler_name in e.key) / calls
+                               for k, t in TABLE.items()},
             "device_ms": busy_us / calls / 1e3, "nccl_device_ms": nccl_us / calls / 1e3,
             "busy_share": busy_us / wall_us if wall_us else None,
             "top_kernels_ms": {e.key[:70]: e.self_device_time_total / calls / 1e3 for e in top}}
 
 
-def record_nms(pipe, x) -> list:
-    """The inputs (boxes, s0, valid, threshold, mode) of each NMS kernel
-    call of one eager detect of ``x`` by ``pipe``'s detector, in call order
-    (``NMS_SITES``); the launch counts stay as they were."""
-    from facerec_torch.ops import nms as nms_module
-
-    calls, kernel = [], nms_module.nms_suppress
-
-    def recording(boxes, s0, valid, threshold, mode="union", unroll=4):
-        calls.append((boxes.clone(), s0.clone(), valid.clone(), threshold, mode))
-        return kernel(boxes, s0, valid, threshold, mode, unroll)
-
-    recording.launches = 0
-    nms_module.nms_suppress = recording
-    try:
-        with torch.no_grad():
-            pipe.detector.detect(x)
-    finally:
-        nms_module.nms_suppress = kernel
-    return calls
-
-
-def record_crops(pipe, x, r) -> list:
-    """The inputs (images, boxes, out size, out dtype) of each crop kernel
-    call of one eager detect of ``x`` by ``pipe``'s detector and of its
-    align of the step's result ``r``, in call order (``CROP_SITES``; the
-    precise align takes none); the launch counts stay as they were."""
-    from facerec_torch.detect import mtcnn
-    from facerec_torch.ops import crop_kernel
-    from facerec_torch.serve.pipeline import _kernel_wrappers
-
-    calls, kernel = [], crop_kernel.crop_resize_kernel
-    counts = [(f, f.launches) for f in _kernel_wrappers()]
-
-    def recording(images, boxes, out_size, out_dtype=torch.float32):
-        calls.append((images.clone(), boxes.clone(), out_size, out_dtype))
-        return kernel(images, boxes, out_size, out_dtype)
-
-    recording.launches = 0  # the wrapper counts on the name it is bound to
-    mtcnn.crop_resize_kernel = crop_kernel.crop_resize_kernel = recording
-    try:
-        with torch.no_grad():
-            pipe.detector.detect(x)
-            lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)
-            pipe.align(x, r.boxes, lm)
-    finally:
-        mtcnn.crop_resize_kernel = crop_kernel.crop_resize_kernel = kernel
-        for f, n in counts:
-            f.launches = n
-    return calls
-
-
-def hold_crops(pipe, x, r) -> list:
-    """The crop kernel against the matmul route, bit for bit, on each crop
-    call of the step on its own inputs (``record_crops``); the names of the
-    calls held. Raises where the count of calls or a value differs."""
-    from facerec_torch.ops.crop_kernel import crop_resize_kernel
-    from facerec_torch.ops.warp_fast import crop_resize_matmul_batched
-
-    calls = record_crops(pipe, x, r)
-    sites = CROP_SITES[:2] if pipe.precise_align else CROP_SITES
-    if len(calls) != len(sites):
-        raise AssertionError(f"the step made {len(calls)} crop calls, not {len(sites)}")
-    for site, args in zip(sites, calls):
-        if not torch.equal(crop_resize_kernel(*args), crop_resize_matmul_batched(*args)):
-            raise AssertionError(f"the crop kernel disagrees with the matmul route ({site})")
-    return list(sites)
-
-
-def hold_kernels(pipe, x: torch.Tensor, r) -> dict:
-    """Each kernel of the step against its plain version on this rank's
-    inputs: K1 on the step's embeddings against the rank's gallery rows and
-    valid count (scores within ``SCORE_ATOL``, indices equal but for
-    near-ties within it, masked slots equal), K2 bit for bit on the patches
-    the step's boxes and landmarks give, the NMS kernel bit for bit (keep
-    and rounds) on each of its calls, the crop kernel bit for bit on each of
-    its calls (``hold_crops``). Returns the max abs error of each and
-    the K1 near-tie slots; raises where one disagrees."""
+def k1_case(q: torch.Tensor, gallery: torch.Tensor, count: int, k: int, f32_tol: float) -> dict:
+    """K1 on queries ``q`` [B, D] against the first ``count`` rows of
+    ``gallery``, beside its plain version fed the queries as the kernel
+    rounds them (to the gallery dtype) and fed f32 queries: the largest
+    score error over the valid slots against each, the near-tie slots
+    (indices that differ from the rounded plain version's), the largest gap
+    between the two rows' plain scores there, whether the masked slots are
+    equal, and ``within``: every bar but the near ties' share (errors and
+    gap within ``SCORE_ATOL``, masked slots equal, within ``f32_tol`` of the
+    f32 queries)."""
     from facerec_torch.ops.gallery import gallery_topk, gallery_topk_plain
-    from facerec_torch.ops.nms import nms_suppress, nms_suppress_plain
-    from facerec_torch.ops.warp_fast import _align_prep, rotate_patches
-    from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
-    g, k = pipe.gallery, pipe.config.top_k
-    q = r.embeddings.reshape(-1, r.embeddings.shape[-1]).float()
-    count = g.local_count
-    cnt = torch.full((), count, dtype=torch.int32, device=q.device)
-    v1, i1 = gallery_topk(q, g.embeddings, cnt, k=k)
-    v0, i0 = gallery_topk_plain(q.to(g.dtype), g.embeddings, cnt, k=k)
+    cnt = torch.tensor(count, dtype=torch.int32, device=q.device)
+    v1, i1 = gallery_topk(q, gallery, cnt, k=k)
+    v0, i0 = gallery_topk_plain(q.to(gallery.dtype), gallery, cnt, k=k)
+    vf, _ = gallery_topk_plain(q, gallery, cnt, k=k)
     nv = min(count, k)
-    masked_equal = torch.equal(i1[:, nv:], i0[:, nv:]) and torch.equal(v1[:, nv:], v0[:, nv:])
+    masked_equal = bool(torch.equal(i1[:, nv:], i0[:, nv:]) and torch.equal(v1[:, nv:], v0[:, nv:]))
     differ = i1[:, :nv] != i0[:, :nv]
     near, gap = int(differ.sum()), 0.0
     if near:
-        s1 = (q.to(g.dtype).float()[:, None, :] * g.embeddings[i1[:, :nv].long()].float()).sum(-1)
+        s1 = (q.to(gallery.dtype).float()[:, None, :] * gallery[i1[:, :nv].long()].float()).sum(-1)
         gap = (s1 - v0[:, :nv]).abs()[differ].max().item()
-    k1_err = (v1 - v0)[:, :nv].abs().max().item() if nv else 0.0
-    out = {"gallery_topk": k1_err, "k1_near_tie_slots": near, "k1_local_count": count}
-    if not (masked_equal and k1_err <= SCORE_ATOL and gap <= SCORE_ATOL
-            and near <= MAX_NEAR_TIE_SHARE * differ.numel()):
-        raise AssertionError(f"K1 disagrees with its plain version: {out}, gap {gap}, masked "
-                             f"slots equal {masked_equal}")
+    out = {"max_abs_err": (v1 - v0)[:, :nv].abs().max().item() if nv else 0.0,
+           "f32_err": (v1 - vf)[:, :nv].abs().max().item() if nv else 0.0,
+           "near_tie_slots": near, "slots": differ.numel(), "near_tie_gap": gap,
+           "masked_equal": masked_equal,
+           "rows_differing": differ.any(dim=1).nonzero().flatten()[:3].tolist()}
+    out["within"] = (masked_equal and out["max_abs_err"] <= SCORE_ATOL and gap <= SCORE_ATOL
+                     and out["f32_err"] <= f32_tol)
+    return out
 
-    calls = record_nms(pipe, x)
-    if len(calls) != len(NMS_SITES):
-        raise AssertionError(f"the detect made {len(calls)} NMS calls, not {len(NMS_SITES)}")
-    out["nms_rounds"] = {}
-    for site, args in zip(NMS_SITES, calls):
-        keep, rounds = nms_suppress(*args)
-        ref, ref_rounds = nms_suppress_plain(*args)
-        if not (torch.equal(keep, ref) and torch.equal(rounds, ref_rounds)):
-            raise AssertionError(f"the NMS kernel disagrees with its plain version ({site})")
-        out["nms_rounds"][site] = [int(rounds.max()), rounds.float().mean().item()]
-    out["nms_suppress"] = 0.0
-    hold_crops(pipe, x, r)
-    out["crop_resize"] = 0.0  # hold_crops raised on any differing value
 
-    cfg = pipe.config
-    lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)
-    patches, angle, centers = _align_prep(x.float(), r.boxes, lm, cfg.embed_size, 0.15)
-    args = (patches.reshape(-1, *patches.shape[2:]), angle.reshape(-1), centers.reshape(-1, 2),
-            cfg.embed_size)
-    got, ref = rotate_patches_kernel(*args), rotate_patches(*args)
-    out["shear_rotate"] = (got.float() - ref.float()).abs().max().item()
-    if not torch.equal(got, ref):
-        raise AssertionError(f"K2 disagrees with its plain version: {out}")
+def _ordered_bf16(t: torch.Tensor) -> torch.Tensor:
+    """bf16 values as integers in their order: neighbours differ by 1."""
+    i = t.contiguous().view(torch.int16).int()
+    return torch.where(i >= 0, i, -(i + 32768))
+
+
+def _epilogue_kind(kw: dict) -> str:
+    if kw.get("prelu") is not None:
+        return "stem" if kw.get("next_bn") is not None else "a"
+    if not kw.get("keep", True):
+        return "last"
+    return "b_downsample" if kw.get("shortcut_bn") is not None else "b_identity"
+
+
+def record_epilogues(pipe, crops: torch.Tensor) -> dict:
+    """Each epilogue pass of one eager embed of ``crops`` by ``pipe``'s
+    embedder (``kernels.recording``), held against its plain twin, grouped
+    by kind and shape: {(kind, shape): {"calls", "args" (the first call's
+    map, BatchNorm and keywords), "max_ulp" (the largest gap in bf16 ulps),
+    "differ" and "values" (the values that differ, of all written)}}."""
+    from facerec_torch.ops import kernels
+    from facerec_torch.ops.iresnet_epilogue import iresnet_epilogue, iresnet_epilogue_plain
+
+    with kernels.recording("iresnet_epilogue") as calls, torch.no_grad():
+        pipe.embedder.embed(crops)
+    groups = {}
+    for (a, bn), kw in calls:
+        g = groups.setdefault((_epilogue_kind(kw), tuple(a.shape)),
+                              {"calls": 0, "args": (a, bn, kw), "max_ulp": 0, "differ": 0,
+                               "values": 0})
+        g["calls"] += 1
+        with torch.no_grad():
+            outs = zip(iresnet_epilogue(a, bn, **kw), iresnet_epilogue_plain(a, bn, **kw))
+        for got, want in outs:
+            if got is not None:
+                ulps = (_ordered_bf16(got) - _ordered_bf16(want)).abs()
+                g["max_ulp"] = max(g["max_ulp"], int(ulps.max().item()))
+                g["differ"] += int((ulps > 0).sum().item())
+                g["values"] += ulps.numel()
+    return groups
+
+
+def record_step(pipe, x: torch.Tensor, r,
+                names: tuple[str, ...] = ("nms_suppress", "crop_resize", "shear_rotate")) -> dict:
+    """The wrapper calls, (args, kwargs) in call order, of each kernel in
+    ``names`` that one eager detect of frames ``x`` by ``pipe`` and its
+    align of the step ``r``'s boxes and landmarks make
+    (``kernels.recording``), and the crops [B, F, S, S, 3] under
+    ``"crops"``."""
+    from facerec_torch.ops import kernels
+
+    with contextlib.ExitStack() as stack, torch.no_grad():
+        calls = {name: stack.enter_context(kernels.recording(name)) for name in names}
+        pipe.detector.detect(x)
+        lm = torch.where(r.valid[..., None, None], r.landmarks, pipe._default_lmk)
+        calls["crops"] = pipe.align(x, r.boxes, lm)
+    return calls
+
+
+def hold_kernels(pipe, x: torch.Tensor, r) -> dict:
+    """Each kernel of ``pipe``'s step against its plain twin, on the inputs
+    the step ``r`` of frames ``x`` gives it on this rank:
+
+      * K1 on the step's embeddings against the rank's gallery rows and
+        valid count: ``k1_case``'s bars, within ``K1_F32_TOL`` of the f32
+        queries, near ties at most ``MAX_NEAR_TIE_SHARE`` of the slots;
+      * on the calls of one eager detect and align (``record_step``): the
+        NMS kernel on each of its calls (``NMS_SITES``), keep and rounds;
+        the crop kernel on each of its calls (``CROP_SITES``, the first two
+        on the precise path); K2 on its call (none on the precise path);
+        each bit for bit;
+      * where the embedder has epilogue passes (``step_launches``), each pass
+        of one eager embed of those crops within one bf16 ulp
+        (``record_epilogues``).
+
+    Returns each kernel's largest error (bf16 ulps for the epilogue) with
+    K1's near ties and each NMS call's rounds (max, mean); raises where a
+    count of calls or a value disagrees."""
+    from facerec_torch.ops import kernels
+    from facerec_torch.ops.crop_kernel import crop_resize_kernel
+    from facerec_torch.ops.nms import nms_suppress
+    from facerec_torch.ops.warp_kernel import rotate_patches_kernel
+
+    g, cfg = pipe.gallery, pipe.config
+    q = r.embeddings.reshape(-1, r.embeddings.shape[-1]).float()
+    k1 = k1_case(q, g.embeddings, g.local_count, cfg.top_k, K1_F32_TOL[g.dtype])
+    out = {"gallery_topk": k1["max_abs_err"], "k1_f32_err": k1["f32_err"],
+           "k1_near_tie_slots": k1["near_tie_slots"], "k1_local_count": g.local_count}
+    if not (k1["within"] and k1["near_tie_slots"] <= MAX_NEAR_TIE_SHARE * k1["slots"]):
+        raise AssertionError(f"K1 disagrees with its plain version: {k1}")
+
+    want = step_launches(pipe)
+    wrappers = {"nms_suppress": nms_suppress, "crop_resize": crop_resize_kernel,
+                "shear_rotate": rotate_patches_kernel}
+    calls = record_step(pipe, x, r, tuple(wrappers))
+    for name, fn in wrappers.items():
+        if len(calls[name]) != want[name]:
+            raise AssertionError(f"the step made {len(calls[name])} {name} calls, not "
+                                 f"{want[name]}")
+        for i, (args, kw) in enumerate(calls[name]):
+            got, ref = (t if isinstance(t, tuple) else (t,)
+                        for t in (fn(*args, **kw), kernels.plain(name)(*args, **kw)))
+            if not all(map(torch.equal, got, ref)):
+                raise AssertionError(f"the {name} kernel disagrees with its plain version on "
+                                     f"call {i} of the step")
+            if name == "nms_suppress":
+                out.setdefault("nms_rounds", {})[NMS_SITES[i]] = [int(got[1].max()),
+                                                                   got[1].float().mean().item()]
+        if want[name]:
+            out[name] = 0.0  # bit for bit
+    if want["iresnet_epilogue"]:
+        s = cfg.embed_size
+        groups = record_epilogues(pipe, calls["crops"].reshape(-1, s, s, 3))
+        passes = sum(v["calls"] for v in groups.values())
+        out["iresnet_epilogue"] = max(v["max_ulp"] for v in groups.values())
+        if passes != want["iresnet_epilogue"] or out["iresnet_epilogue"] > 1:
+            raise AssertionError(f"the embed made {passes} epilogue passes, the largest "
+                                 f"{out['iresnet_epilogue']} bf16 ulps from the plain route")
     return out
 
 
@@ -566,6 +585,7 @@ def serve_layout(dp: int, mp: int, frames: np.ndarray, det, emb, tmp: str) -> di
     """One serve layout on this rank (module docstring). Returns its launches,
     holds, timings and agreement; raises on any failed check."""
     from facerec_torch.config import MeshConfig
+    from facerec_torch.ops import kernels
     from facerec_torch.parallel.mesh import build_mesh
     from facerec_torch.serve.pipeline import FacePipeline
 
@@ -585,10 +605,10 @@ def serve_layout(dp: int, mp: int, frames: np.ndarray, det, emb, tmp: str) -> di
     pipe.run_step(x)  # the warm-ups, the capture, one replay
     torch.cuda.synchronize()
     capture_s = time.perf_counter() - t0
-    zero_launches()
+    kernels.zero()
     r = pipe.run_step(x)
     torch.cuda.synchronize()
-    counted = launches()
+    counted = kernels.launches()
     eager = pipe.step(x)
     graph_equal = {f: bool(torch.equal(a, b)) for f, a, b in zip(r._fields, r, eager)}
     by_name = profiled(lambda: pipe.run_step(x), calls=1)["by_kernel_name"]
@@ -606,7 +626,7 @@ def serve_layout(dp: int, mp: int, frames: np.ndarray, det, emb, tmp: str) -> di
            "device_ms": busy["device_ms"], "nccl_device_ms": busy["nccl_device_ms"],
            "busy_share": busy["busy_share"], "top_kernels_ms": busy["top_kernels_ms"]}
     faults = []
-    if counted != STEP_LAUNCHES or by_name != STEP_LAUNCHES:
+    if counted != step_launches(pipe) or by_name != step_launches(pipe):
         faults.append(f"one replay launched {counted} (by kernel name {by_name})")
     if not all(graph_equal.values()):
         faults.append(f"the replay differs from the eager mesh step: {graph_equal}")

@@ -19,11 +19,9 @@ position is NaN in both.
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from facerec_torch import build
+from facerec_torch.ops import kernels
 from facerec_torch.ops.warp_fast import crop_resize_matmul_batched
 
 MAX_CHANNELS = 4  # kMaxC in csrc/crop_resize.cu
@@ -58,6 +56,7 @@ def crop_resize_kernel(images: torch.Tensor, boxes: torch.Tensor, out_size: int,
     (x1, y1, x2, y2) -> [B, N, out, out, C] in ``out_dtype`` (f32 or bf16).
     The CUDA kernel on CUDA tensors, where ``out * C`` must be a multiple of
     4 (f32) or 8 (bf16) values; the matmul route on CPU tensors."""
+    kernels.note("crop_resize", images, boxes, out_size, out_dtype)
     if not images.is_cuda:
         return crop_resize_matmul_batched(images, boxes, out_size, out_dtype)
     if images.dim() != 4 or boxes.dim() != 3 or boxes.shape[0] != images.shape[0] \
@@ -87,21 +86,7 @@ def crop_resize_kernel(images: torch.Tensor, boxes: torch.Tensor, out_size: int,
         return out
     bx = boxes.float().contiguous()
     with torch.cuda.device(dev):  # the launcher sizes and launches on the current device
-        err = _launcher()(images.data_ptr(), int(images.dtype == torch.bfloat16), bx.data_ptr(),
-                          b, n, h, w, c, out_size, out.data_ptr(),
-                          int(out_dtype == torch.bfloat16),
-                          torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "crop_resize")
-    crop_resize_kernel.launches += 1
+        kernels.launch("crop_resize", images.data_ptr(), int(images.dtype == torch.bfloat16),
+                       bx.data_ptr(), b, n, h, w, c, out_size, out.data_ptr(),
+                       int(out_dtype == torch.bfloat16), torch.cuda.current_stream(dev).cuda_stream)
     return out
-
-
-crop_resize_kernel.launches = 0
-
-
-def _launcher():
-    fn = build.library("crop_resize").crop_resize_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, i, p] + [i] * 6 + [p, i, p]
-    fn.restype = i
-    return fn

@@ -17,12 +17,11 @@ dispatch (``gallery_topk_xla``) does.
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 
-from facerec_torch import build
+from facerec_torch.ops import kernels
 
 NEG = -1e30
 _TQ, _TG = 32, 64  # query tile and row tile of the f32 kernel in csrc/gallery_topk.cu
@@ -86,6 +85,7 @@ def gallery_topk(queries: torch.Tensor, gallery: torch.Tensor,
     rounded to bf16 against a bf16 gallery), the plain version on CPU
     tensors. ``count`` may be a device int32 scalar (read by the kernel from
     device memory) or a Python int."""
+    kernels.note("gallery_topk", queries, gallery, count, k)
     if not gallery.is_cuda:
         return gallery_topk_plain(queries, gallery, count, k)
     b, d = queries.shape
@@ -114,25 +114,10 @@ def gallery_topk(queries: torch.Tensor, gallery: torch.Tensor,
     cand_i = torch.empty((b, nsplit, k), dtype=torch.int32, device=dev)
     out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
-    fn = _launcher()
-    err = fn(q.data_ptr(), gallery.data_ptr(), int(bf16),
-             cnt.data_ptr(), b, g, d, k, rows, nsplit, cand_v.data_ptr(),
-             cand_i.data_ptr(), out_v.data_ptr(), out_i.data_ptr(),
-             torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "gallery_topk")
-    gallery_topk.launches += 1
+    kernels.launch("gallery_topk", q.data_ptr(), gallery.data_ptr(), int(bf16), cnt.data_ptr(),
+                   b, g, d, k, rows, nsplit, cand_v.data_ptr(), cand_i.data_ptr(),
+                   out_v.data_ptr(), out_i.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
     return out_v, out_i
-
-
-gallery_topk.launches = 0
-
-
-def _launcher():
-    fn = build.library("gallery_topk").gallery_topk_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, i, p, i, i, i, i, i, i, p, p, p, p, p]
-    fn.restype = i
-    return fn
 
 
 def cosine_to_euclidean(cos: torch.Tensor) -> torch.Tensor:

@@ -27,7 +27,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from facerec_torch import build
+from facerec_torch.ops import kernels
 
 MAX_CHANNELS = 512  # kMaxC in csrc/iresnet_epilogue.cu
 VEC = 8  # bf16 channels of a 16-byte vector: C must be a multiple
@@ -99,6 +99,8 @@ def iresnet_epilogue(a: torch.Tensor, bn: nn.BatchNorm2d, *, prelu: nn.PReLU | N
     modules' parameters bf16 [C] on its device. The CUDA kernel on CUDA
     tensors, ``iresnet_epilogue_plain`` on CPU tensors; either raises on
     any other input."""
+    kernels.note("iresnet_epilogue", a, bn, prelu=prelu, shortcut=shortcut,
+                 shortcut_bn=shortcut_bn, next_bn=next_bn, keep=keep)
     _check_map("the map", a)
     if shortcut is not None:
         _check_map("the shortcut", shortcut, a)
@@ -124,22 +126,8 @@ def iresnet_epilogue(a: torch.Tensor, bn: nn.BatchNorm2d, *, prelu: nn.PReLU | N
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     dev = a.device
     with torch.cuda.device(dev):  # the launcher sizes the grid on the current device
-        err = _launcher()(ptr(a), ptr(shortcut), ptr(z), ptr(zn), n * h * w, c,
-                          (ctypes.c_void_p * 12)(*ptrs), (ctypes.c_float * 3)(*eps),
-                          params["prelu"][0].data_ptr() if prelu is not None else None,
-                          torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "iresnet_epilogue")
-    iresnet_epilogue.launches += 1
+        kernels.launch("iresnet_epilogue", ptr(a), ptr(shortcut), ptr(z), ptr(zn), n * h * w, c,
+                       (ctypes.c_void_p * 12)(*ptrs), (ctypes.c_float * 3)(*eps),
+                       params["prelu"][0].data_ptr() if prelu is not None else None,
+                       torch.cuda.current_stream(dev).cuda_stream)
     return z, zn
-
-
-iresnet_epilogue.launches = 0
-
-
-def _launcher():
-    fn = build.library("iresnet_epilogue").iresnet_epilogue_launch
-    p = ctypes.c_void_p
-    fn.argtypes = [p, p, p, p, ctypes.c_longlong, ctypes.c_int, ctypes.POINTER(p),
-                   ctypes.POINTER(ctypes.c_float), p, p]
-    fn.restype = ctypes.c_int
-    return fn

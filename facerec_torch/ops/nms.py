@@ -19,11 +19,9 @@ not depend on ``unroll``).
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from facerec_torch import build
+from facerec_torch.ops import kernels
 from facerec_torch.ops.gallery import topk_stable
 from facerec_torch.utils import profiling
 
@@ -134,6 +132,7 @@ def nms_suppress(boxes: torch.Tensor, s0: torch.Tensor, valid: torch.Tensor, thr
     """The suppression of ``nms_suppress_plain``: the CUDA kernel on CUDA
     tensors (f32 boxes and scores, N up to ``MAX_N``; it raises otherwise),
     the plain version on CPU tensors (``unroll`` is read only there)."""
+    kernels.note("nms_suppress", boxes, s0, valid, threshold, mode, unroll)
     if not boxes.is_cuda:
         return nms_suppress_plain(boxes, s0, valid, threshold, mode, unroll)
     m, n, four = boxes.shape
@@ -154,20 +153,7 @@ def nms_suppress(boxes: torch.Tensor, s0: torch.Tensor, valid: torch.Tensor, thr
         return keep, rounds.zero_()
     boxes, s0, valid = boxes.contiguous(), s0.contiguous(), valid.contiguous()
     with torch.cuda.device(dev):
-        err = _launcher()(boxes.data_ptr(), s0.data_ptr(), valid.data_ptr(), m, n,
-                          float(threshold), MODES.index(mode), keep.data_ptr(),
-                          rounds.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-    build.check(err, "nms_suppress")
-    nms_suppress.launches += 1
+        kernels.launch("nms_suppress", boxes.data_ptr(), s0.data_ptr(), valid.data_ptr(), m, n,
+                       float(threshold), MODES.index(mode), keep.data_ptr(), rounds.data_ptr(),
+                       torch.cuda.current_stream(dev).cuda_stream)
     return keep, rounds
-
-
-nms_suppress.launches = 0
-
-
-def _launcher():
-    fn = build.library("nms_fixed_point").nms_suppress_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p, p, p, i, i, ctypes.c_float, i, p, p, p]
-    fn.restype = i
-    return fn

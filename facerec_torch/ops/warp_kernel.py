@@ -11,12 +11,11 @@ statement of that arithmetic, which the kernel repeats op by op.
 
 from __future__ import annotations
 
-import ctypes
 import math
 
 import torch
 
-from facerec_torch import build
+from facerec_torch.ops import kernels
 from facerec_torch.ops.warp_fast import COARSE, _shear_lines, _shear_params, rotate_patches
 
 MAX_CHANNELS = 4  # kMaxC in csrc/shear_rotate.cu
@@ -37,6 +36,7 @@ def rotate_patches_kernel(patches: torch.Tensor, angles: torch.Tensor,
     """Drop-in for ``warp_fast.rotate_patches``: the CUDA kernel on CUDA
     tensors, the plain version on CPU tensors. patches [N, P, P, C],
     angles [N], centres [N, 2] -> [N, out, out, C] in the patch dtype."""
+    kernels.note("shear_rotate", patches, angles, centers, out_size, max_angle_deg)
     if not patches.is_cuda:
         return rotate_patches(patches, angles, centers, out_size, max_angle_deg)
     return rotate_patches_tiled(patches, angles, centers, out_size, max_angle_deg)
@@ -62,20 +62,8 @@ def rotate_patches_tiled(patches: torch.Tensor, angles: torch.Tensor, centers: t
     sy, cy, sx, cx, ky, kx = _shear_params(phi, centers.float(), p, max_rad)  # [N] f32 each
     src = patches.to(torch.bfloat16).contiguous()
     with torch.cuda.device(src.device):  # the launcher sizes and launches on the current device
-        err = _launcher()(src.data_ptr(), sy.data_ptr(), cy.data_ptr(), sx.data_ptr(),
-                          cx.data_ptr(), n, p, out_size, ch, ky, kx, segments, blocks_per_sm,
-                          out.data_ptr(), torch.cuda.current_stream(src.device).cuda_stream)
-    build.check(err, "shear_rotate")
-    rotate_patches_kernel.launches += 1
+        kernels.launch("shear_rotate", src.data_ptr(), sy.data_ptr(), cy.data_ptr(),
+                       sx.data_ptr(), cx.data_ptr(), n, p, out_size, ch, ky, kx, segments,
+                       blocks_per_sm, out.data_ptr(),
+                       torch.cuda.current_stream(src.device).cuda_stream)
     return out.to(patches.dtype)
-
-
-rotate_patches_kernel.launches = 0
-
-
-def _launcher():
-    fn = build.library("shear_rotate").shear_rotate_launch
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 5 + [i] * 8 + [p, p]
-    fn.restype = i
-    return fn

@@ -63,6 +63,7 @@ import torch.nn as nn
 from facerec_torch import resolve_device
 from facerec_torch.config import ServeConfig
 from facerec_torch.detect.mtcnn import MTCNN
+from facerec_torch.ops import kernels
 from facerec_torch.ops.arcface import l2_normalize
 from facerec_torch.ops.gallery import cosine_to_euclidean, gallery_topk
 from facerec_torch.ops.image import align_and_crop_batched, bbox_with_margin
@@ -91,21 +92,11 @@ class PipelineResult(NamedTuple):
 
 class _Captured(NamedTuple):
     """One captured step: its graph, static input and static outputs, and
-    the launches of each port kernel (``_kernel_wrappers``) one replay
-    makes."""
+    the launches of each port kernel one replay makes (``ops.kernels``)."""
     graph: torch.cuda.CUDAGraph
     frames: torch.Tensor
     outputs: tuple
-    launches: tuple[int, ...]
-
-
-def _kernel_wrappers() -> tuple:
-    """The port's kernel wrappers, whose ``launches`` counts a replay
-    advances by what its capture recorded."""
-    from facerec_torch.ops import crop_kernel, gallery, iresnet_epilogue, nms, warp_kernel
-
-    return (gallery.gallery_topk, warp_kernel.rotate_patches_kernel, nms.nms_suppress,
-            crop_kernel.crop_resize_kernel, iresnet_epilogue.iresnet_epilogue)
+    launches: dict[str, int]
 
 
 class FacePipeline:
@@ -261,8 +252,7 @@ class FacePipeline:
             cap = self._graphs[key] = self._capture(body, frames)
         cap.frames.copy_(frames)
         cap.graph.replay()
-        for wrapper, n in zip(_kernel_wrappers(), cap.launches):
-            wrapper.launches += n
+        kernels.advance(cap.launches)
         out = [t.clone() for t in cap.outputs]  # JAX returns fresh buffers too
         return PipelineResult(*out) if kind == "step" else tuple(out)
 
@@ -283,14 +273,12 @@ class FacePipeline:
             torch.cuda.current_stream(dev).wait_stream(side)
             if self._pool is None:
                 self._pool = torch.cuda.graph_pool_handle()
-            wrappers = _kernel_wrappers()
-            before = [w.launches for w in wrappers]
+            before = kernels.launches()
             graph = torch.cuda.CUDAGraph()
             with torch.cuda.graph(graph, pool=self._pool, capture_error_mode="thread_local"):
                 outputs = body(static)
-            recorded = tuple(w.launches - n for w, n in zip(wrappers, before))
-            for w, n in zip(wrappers, before):
-                w.launches = n
+            recorded = {k: n - before[k] for k, n in kernels.launches().items()}
+            kernels.advance({k: -n for k, n in recorded.items()})
         return _Captured(graph, static, tuple(outputs), recorded)
 
     def dispatch_demo(self, frames: np.ndarray) -> tuple[torch.Tensor, torch.Tensor]:

@@ -130,12 +130,8 @@ class _Ring:
         self.buf = torch.zeros(_HEAD + 2 * RING_SLOTS, dtype=torch.int64, device=device)
         self.counters: list[str] = []
         self.t0_ns: int | None = None  # the first stamp read: the ring's clock starts there
-        lib = build.library("trace_stamp")
-        fn = lib.trace_stamp_launch
         p, ll = ctypes.c_void_p, ctypes.c_longlong
-        fn.argtypes = [p, p, ll, ll, p]
-        fn.restype = ctypes.c_int
-        self._launch = fn
+        self._launch = build.function("trace_stamp", "trace_stamp_launch", (p, p, ll, ll, p))
         self._check = build.check
 
     def stamp(self, code: int) -> None:
@@ -546,9 +542,8 @@ def timer_steps_ns(device: str | torch.device = "cuda", n: int = 64) -> list[int
 
     dev = torch.device(device)
     out = torch.zeros(n, dtype=torch.int64, device=dev)
-    fn = build.library("trace_stamp").trace_timer_steps_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = build.function("trace_stamp", "trace_timer_steps_launch",
+                        (ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p))
     with torch.cuda.device(dev):
         build.check(fn(out.data_ptr(), n, torch.cuda.current_stream(dev).cuda_stream),
                     "trace_timer_steps")

@@ -15,6 +15,9 @@ from __future__ import annotations
 
 import ctypes
 import ctypes.util
+from types import SimpleNamespace
+
+from facerec_torch import build
 
 LIBRARY = "libzstd.so.1"
 _CONTENTSIZE_UNKNOWN = 2**64 - 1
@@ -22,11 +25,12 @@ _CONTENTSIZE_ERROR = 2**64 - 2
 _ERROR_DST_TOO_SMALL = 70  # ZSTD_error_dstSize_tooSmall
 MAX_BYTES = 1 << 31  # the largest output tried: a bound on what a corrupt frame can claim
 
-_lib: ctypes.CDLL | None = None
+_lib: SimpleNamespace | None = None
 
 
-def library() -> ctypes.CDLL:
-    """The loaded ``libzstd``; RuntimeError naming it when it is missing."""
+def library() -> SimpleNamespace:
+    """The bound functions of ``libzstd``; RuntimeError naming it when it is
+    missing."""
     global _lib
     if _lib is None:
         name = ctypes.util.find_library("zstd") or LIBRARY
@@ -36,16 +40,12 @@ def library() -> ctypes.CDLL:
             raise RuntimeError(
                 f"zstd decompression needs the system library {LIBRARY} (Debian/Ubuntu "
                 f"package libzstd1), which could not be loaded: {e}") from e
-        lib.ZSTD_getFrameContentSize.argtypes = [ctypes.c_char_p, ctypes.c_size_t]
-        lib.ZSTD_getFrameContentSize.restype = ctypes.c_ulonglong
-        lib.ZSTD_decompress.argtypes = [ctypes.c_void_p, ctypes.c_size_t,
-                                        ctypes.c_char_p, ctypes.c_size_t]
-        lib.ZSTD_decompress.restype = ctypes.c_size_t
-        lib.ZSTD_isError.argtypes = [ctypes.c_size_t]
-        lib.ZSTD_isError.restype = ctypes.c_uint
-        lib.ZSTD_getErrorName.argtypes = [ctypes.c_size_t]
-        lib.ZSTD_getErrorName.restype = ctypes.c_char_p
-        _lib = lib
+        size_t = ctypes.c_size_t
+        _lib = SimpleNamespace(**{sym: build.function(lib, sym, args, res) for sym, args, res in (
+            ("ZSTD_getFrameContentSize", (ctypes.c_char_p, size_t), ctypes.c_ulonglong),
+            ("ZSTD_decompress", (ctypes.c_void_p, size_t, ctypes.c_char_p, size_t), size_t),
+            ("ZSTD_isError", (size_t,), ctypes.c_uint),
+            ("ZSTD_getErrorName", (size_t,), ctypes.c_char_p))})
     return _lib
 
 

@@ -13,6 +13,7 @@ from chip_smoke import K2_CASES, TRAIN_STEP_RTOL, k2_case, nms_adversarial_rows,
 from facerec_torch.config import ArcFaceConfig, OptimizerConfig, SchedulerConfig, TrainConfig
 from facerec_torch.data.synthetic import write_synthetic_imagefolder
 from facerec_torch.models.arcface import build_embedder
+from facerec_torch.ops import kernels
 from facerec_torch.ops.arcface import cosine_logits
 from facerec_torch.ops.crop_kernel import crop_resize_kernel
 from facerec_torch.ops.gallery import (bf16_rows_per_split, bf16_splits, gallery_topk,
@@ -46,12 +47,12 @@ def _assert_kernel_agrees(q, g, count, k, tol):
     of the slots; values within 1e-5; and within ``tol`` of the plain
     version with f32 queries."""
     cnt = torch.tensor(count, dtype=torch.int32, device=q.device)
-    before = gallery_topk.launches
+    before = kernels.launches()["gallery_topk"]
     v1, i1 = gallery_topk(q, g, cnt, k=k)
     v0, i0 = gallery_topk_plain(q.to(g.dtype), g, cnt, k=k)
     vf, _ = gallery_topk_plain(q, g, cnt, k=k)
     torch.cuda.synchronize()
-    assert gallery_topk.launches == before + 1
+    assert kernels.launches()["gallery_topk"] == before + 1
     nv = min(count, k)
     assert torch.equal(i1[:, nv:], i0[:, nv:]) and torch.equal(v1[:, nv:], v0[:, nv:])
     differ = i1[:, :nv] != i0[:, :nv]
@@ -127,11 +128,11 @@ def test_rotate_kernel_matches_plain(dev):
     patches = (torch.rand(n, p, p, 3, generator=g0, device=dev) * 255).to(torch.bfloat16)
     angles = (torch.rand(n, generator=g0, device=dev) * 2 - 1) * math.radians(20.0)
     centers = p * (0.3 + 0.4 * torch.rand(n, 2, generator=g0, device=dev))
-    before = rotate_patches_kernel.launches
+    before = kernels.launches()["shear_rotate"]
     got = rotate_patches_kernel(patches, angles, centers, e)
     ref = rotate_patches(patches, angles, centers, e)
     torch.cuda.synchronize()
-    assert rotate_patches_kernel.launches == before + 1
+    assert kernels.launches()["shear_rotate"] == before + 1
     assert torch.equal(got, ref), (got.float() - ref.float()).abs().max().item()
 
 
@@ -153,11 +154,11 @@ def test_rotate_kernel_bit_exact(dev, case, n, p, e):
     edge cases, E == P, one patch, and a shape whose rows are not whole
     16-byte chunks (the kernel's element-wise copy and store paths)."""
     patches, angles, centers = _rotate_case(case, n, p, dev)
-    before = rotate_patches_kernel.launches
+    before = kernels.launches()["shear_rotate"]
     got = rotate_patches_kernel(patches, angles, centers, e)
     ref = rotate_patches(patches, angles, centers, e)
     torch.cuda.synchronize()
-    assert rotate_patches_kernel.launches == before + 1
+    assert kernels.launches()["shear_rotate"] == before + 1
     assert got.shape == (n, e, e, 3)
     assert torch.equal(got, ref), (got.float() - ref.float()).abs().max().item()
 
@@ -183,10 +184,10 @@ def test_rotate_kernel_forced_tilings(dev, segments, blocks_per_sm):
     """Every tiling a caller may force gives the same bits: one to E row
     ranges per patch, at one or two blocks per SM."""
     patches, angles, centers = _rotate_case("random", 7, 208, dev)
-    before = rotate_patches_kernel.launches
+    before = kernels.launches()["shear_rotate"]
     got = rotate_patches_tiled(patches, angles, centers, 160, segments=segments,
                                blocks_per_sm=blocks_per_sm)
-    assert rotate_patches_kernel.launches == before + 1
+    assert kernels.launches()["shear_rotate"] == before + 1
     assert torch.equal(got, rotate_patches(patches, angles, centers, 160))
 
 
@@ -217,19 +218,19 @@ def test_rotate_kernel_refuses_channels(dev):
 
 
 def test_rotate_kernel_empty_batch(dev):
-    before = rotate_patches_kernel.launches
+    before = kernels.launches()["shear_rotate"]
     out = rotate_patches_kernel(torch.zeros(0, 208, 208, 3, device=dev), torch.zeros(0, device=dev),
                                 torch.zeros(0, 2, device=dev), 160)
-    assert out.shape == (0, 160, 160, 3) and rotate_patches_kernel.launches == before
+    assert out.shape == (0, 160, 160, 3) and kernels.launches()["shear_rotate"] == before
 
 
 def _crop_agrees(images, boxes, out, out_dtype):
     """The crop kernel, one launch, against the matmul route on the card."""
-    before = crop_resize_kernel.launches
+    before = kernels.launches()["crop_resize"]
     got = crop_resize_kernel(images, boxes, out, out_dtype)
     ref = crop_resize_matmul_batched(images, boxes, out, out_dtype)
     torch.cuda.synchronize()
-    assert crop_resize_kernel.launches == before + 1
+    assert kernels.launches()["crop_resize"] == before + 1
     assert got.dtype == ref.dtype == out_dtype and got.shape == ref.shape
     return _same(got.float(), ref.float())
 
@@ -263,14 +264,14 @@ def test_crop_kernel_on_a_serve_batch(dev, no_tf32):
 
     from chip_smoke import build_pipeline
     from facerec_torch.data.synthetic import face_frames
-    from facerec_torch.multichip import record_crops
+    from facerec_torch.multichip import record_step
 
     pipe = build_pipeline(dev, (480, 640), 8, torch.bfloat16,
                           dict(gallery_capacity=64, top_k=5, embed_size=160))
     frames = face_frames(48, (480, 640), 8, np.random.default_rng(0)).astype(np.uint8)
     x = pipe.upload(frames)
     r = pipe.step(x)
-    calls = record_crops(pipe, x, r)
+    calls = [args for args, _ in record_step(pipe, x, r, ("crop_resize",))["crop_resize"]]
     assert r.valid.sum().item() >= 100
     assert [(c[0].shape[1:3], c[1].shape[1], c[2]) for c in calls] == [
         ((288, 384), 32, 24), ((480, 640), 20, 48), ((480, 640), 8, 208)]
@@ -298,16 +299,15 @@ def test_replayed_step_matches_the_matmul_route(dev, no_tf32, monkeypatch, embed
                               embedder=embedder)
         pipe.gallery.add_many([f"id{i}" for i in range(64)], gal)
         pipe.process_demo(frames)  # the capture, after its warm-up runs
-        before = crop_resize_kernel.launches
+        before = kernels.launches()["crop_resize"]
         packed, emb = pipe.process_demo(frames)
-        return packed, emb.cpu(), crop_resize_kernel.launches - before
+        return packed, emb.cpu(), kernels.launches()["crop_resize"] - before
 
     packed, emb, launched = run()
 
     def matmul_route(images, boxes, out_size, out_dtype=torch.float32):
         return crop_resize_matmul_batched(images, boxes, out_size, out_dtype)
 
-    matmul_route.launches = 0
     monkeypatch.setattr(mtcnn, "crop_resize_kernel", matmul_route)
     monkeypatch.setattr(crop_kernel, "crop_resize_kernel", matmul_route)
     ref_packed, ref_emb, ref_launched = run()
@@ -337,10 +337,10 @@ def test_crop_kernel_refuses(dev):
 
 @pytest.mark.parametrize("b,n", [(2, 0), (0, 3)])
 def test_crop_kernel_empty_batch(dev, b, n):
-    before = crop_resize_kernel.launches
+    before = kernels.launches()["crop_resize"]
     got = crop_resize_kernel(torch.zeros(b, 30, 40, 3, device=dev),
                              torch.zeros(b, n, 4, device=dev), 16, torch.bfloat16)
-    assert got.shape == (b, n, 16, 16, 3) and crop_resize_kernel.launches == before
+    assert got.shape == (b, n, 16, 16, 3) and kernels.launches()["crop_resize"] == before
 
 
 @pytest.mark.parametrize("ch,out", [(1, 24), (2, 24), (4, 48), (1, 8)])
@@ -443,10 +443,11 @@ def test_precise_step_on_the_card_matches_the_cpu(dev, no_tf32):
     frames = _demo_frames()
     card, cpu = _tiny_pipeline(dev, True), _tiny_pipeline(torch.device("cpu"), True)
     card.process(frames)  # the capture, after its warm-up runs
-    k1, k2 = gallery_topk.launches, rotate_patches_kernel.launches
+    k1, k2 = kernels.launches()["gallery_topk"], kernels.launches()["shear_rotate"]
     a = card.process(frames)
     torch.cuda.synchronize()
-    assert (gallery_topk.launches - k1, rotate_patches_kernel.launches - k2) == (1, 0)
+    after = kernels.launches()
+    assert (after["gallery_topk"] - k1, after["shear_rotate"] - k2) == (1, 0)
     b = cpu.process(frames)
     va = a.valid.cpu()
     assert torch.equal(va, b.valid) and va.any()
@@ -561,10 +562,11 @@ def test_facenet_step_on_the_card_matches_the_cpu(dev, no_tf32):
     top-1. Two replays of one captured step, after its warm-up runs."""
     from chip_smoke import small_input_agrees
 
-    k1, k2 = gallery_topk.launches, rotate_patches_kernel.launches
+    k1, k2 = kernels.launches()["gallery_topk"], kernels.launches()["shear_rotate"]
     small_input_agrees(dev, "facenet")
     steps = 2 + WARMUP_RUNS
-    assert (gallery_topk.launches - k1, rotate_patches_kernel.launches - k2) == (steps, steps)
+    after = kernels.launches()
+    assert (after["gallery_topk"] - k1, after["shear_rotate"] - k2) == (steps, steps)
 
 
 @pytest.mark.parametrize("embedder", ["arcface", "facenet"])
@@ -605,11 +607,11 @@ def _nms_inputs(m, n, gen, dev, ties: bool = True, side=(2.0, 30.0), span=64.0):
 def _assert_suppression_agrees(boxes, s0, valid, threshold=0.5, mode="union"):
     """The fused kernel against its plain version, keep and rounds equal,
     one launch."""
-    before = nms_suppress.launches
+    before = kernels.launches()["nms_suppress"]
     keep, rounds = nms_suppress(boxes, s0, valid, threshold, mode)
     ref_keep, ref_rounds = nms_suppress_plain(boxes, s0, valid, threshold, mode)
     torch.cuda.synchronize()
-    assert nms_suppress.launches == before + 1
+    assert kernels.launches()["nms_suppress"] == before + 1
     assert torch.equal(keep, ref_keep) and torch.equal(rounds, ref_rounds), (mode, threshold)
     return keep, rounds
 
@@ -741,18 +743,19 @@ def test_captured_step_matches_eager(dev, no_tf32, precise):
 
 def test_launches_per_replay(dev, no_tf32):
     """One replay adds what its capture recorded: K1 1, K2 1 (0 on the
-    precise path), the NMS kernel 5 and the crop kernel 3 (R-Net, O-Net and
-    align; 2 on the precise path, whose align gathers)."""
+    precise path), the NMS kernel 5, the crop kernel 3 (R-Net, O-Net and
+    align; 2 on the precise path, whose align gathers) and no epilogue
+    pass."""
     for precise, k2, crops in ((False, 1, 3), (True, 0, 2)):
         pipe = _tiny_pipeline(dev, precise)
         x = pipe.upload(_demo_frames())
         pipe.run_step(x)
-        before = (gallery_topk.launches, rotate_patches_kernel.launches,
-                  nms_suppress.launches, crop_resize_kernel.launches)
+        before = kernels.launches()
         pipe.run_step(x)
-        after = (gallery_topk.launches, rotate_patches_kernel.launches,
-                 nms_suppress.launches, crop_resize_kernel.launches)
-        assert tuple(a - b for a, b in zip(after, before)) == (1, k2, 5, crops)
+        after = kernels.launches()
+        assert {k: n - before[k] for k, n in after.items()} == {
+            "gallery_topk": 1, "shear_rotate": k2, "nms_suppress": 5, "crop_resize": crops,
+            "iresnet_epilogue": 0}
 
 
 def test_two_dispatches_in_flight(dev, no_tf32):

@@ -19,9 +19,8 @@ import torch
 import torch.nn as nn
 
 from chip_smoke import K2_CASES, k2_case
+from facerec_torch.ops import kernels
 from facerec_torch.ops.crop_kernel import crop_resize_kernel
-from facerec_torch.ops.gallery import gallery_topk
-from facerec_torch.ops.nms import nms_suppress
 from facerec_torch.ops.warp_fast import _align_prep, crop_resize_matmul_batched, rotate_patches
 from facerec_torch.ops.warp_kernel import rotate_patches_kernel
 
@@ -79,13 +78,13 @@ def test_align_kernels_at_112_on_a_serve_batch(dev, no_tf32):
     (R-Net, O-Net, align's 48 x 8 patches of 144 px) against the matmul
     route, and K2 on those patches (384 x 144 -> 112) against the plain
     rotation, each bit for bit."""
-    from facerec_torch.multichip import record_crops
+    from facerec_torch.multichip import record_step
 
     pipe = _pipeline(dev)
     x = pipe.upload(_frames())
     r = pipe.step(x)
     assert r.valid.sum().item() >= 100
-    calls = record_crops(pipe, x, r)
+    calls = [args for args, _ in record_step(pipe, x, r, ("crop_resize",))["crop_resize"]]
     assert [(c[0].shape[1:3], c[1].shape[1], c[2]) for c in calls] == [
         ((288, 384), 32, 24), (HW, 20, 48), (HW, 8, PATCH)]
     for images, boxes, out, out_dtype in calls:
@@ -95,11 +94,11 @@ def test_align_kernels_at_112_on_a_serve_batch(dev, no_tf32):
     patches, angle, centers = _align_prep(x.float(), r.boxes, lmk, CROP, 0.15)
     assert patches.shape == (48, 8, PATCH, PATCH, 3)
     flat = patches.reshape(-1, PATCH, PATCH, 3)
-    before = rotate_patches_kernel.launches
+    before = kernels.launches()["shear_rotate"]
     got = rotate_patches_kernel(flat, angle.reshape(-1), centers.reshape(-1, 2), CROP)
     want = rotate_patches(flat, angle.reshape(-1), centers.reshape(-1, 2), CROP)
     torch.cuda.synchronize()
-    assert rotate_patches_kernel.launches == before + 1
+    assert kernels.launches()["shear_rotate"] == before + 1
     assert got.shape == (384, CROP, CROP, 3) and torch.equal(got, want)
 
 
@@ -118,18 +117,20 @@ def test_rotate_kernel_at_144_to_112(dev, case, n):
 
 def test_identify_at_112_replays_the_eager_step(dev, no_tf32):
     """The replayed step equals the eager one, field for field, twice; a
-    replay launches K1 once, K2 once, the NMS kernel 5 times and the crop
-    kernel 3 times; ``identify`` answers every valid face from it."""
+    replay launches K1 once, K2 once, the NMS kernel 5 times, the crop
+    kernel 3 times and the epilogue kernel 99 times; ``identify`` answers
+    every valid face from it."""
     pipe = _pipeline(dev)
     frames = _frames(1)
     x = pipe.upload(frames)
     eager = pipe.step(x)
     first = pipe.run_step(x)
-    kernels = (gallery_topk, rotate_patches_kernel, nms_suppress, crop_resize_kernel)
-    before = [k.launches for k in kernels]
+    before = kernels.launches()
     second = pipe.run_step(x)
     torch.cuda.synchronize()
-    assert [k.launches - b for k, b in zip(kernels, before)] == [1, 1, 5, 3]
+    assert {k: n - before[k] for k, n in kernels.launches().items()} == {
+        "gallery_topk": 1, "shear_rotate": 1, "nms_suppress": 5, "crop_resize": 3,
+        "iresnet_epilogue": 99}
     assert len(pipe._graphs) == 1
     assert all(torch.equal(a, b) for a, b in zip(first, eager))
     assert all(torch.equal(a, b) for a, b in zip(second, eager))
@@ -249,18 +250,16 @@ def test_fused_iresnet100_against_the_module_chain_on_serve_crops(dev, no_tf32):
     """The whole IResNet-100 on a serve batch's own crops: the fused route
     (what ``embed`` takes here) against the module chain; the largest
     unit-embedding gap printed and under 0.05."""
-    from facerec_torch.ops.iresnet_epilogue import iresnet_epilogue
-
     pipe = _pipeline(dev)
     emb = pipe.embedder
     with torch.no_grad():
         crops = _serve_crops(pipe, _frames(3))
-        before = iresnet_epilogue.launches
+        before = kernels.launches()["iresnet_epilogue"]
         fused = emb.embed(crops)
-        assert iresnet_epilogue.launches - before == 99
+        assert kernels.launches()["iresnet_epilogue"] - before == 99
         with torch.enable_grad():  # the module chain: the route wants no gradient
             chain = emb.embed(crops).detach()
-        assert iresnet_epilogue.launches - before == 99
+        assert kernels.launches()["iresnet_epilogue"] - before == 99
     gap = (fused - chain).norm(dim=1).max().item()
     print(f"IResNet-100 fused against the module chain on {len(crops)} serve crops: "
           f"largest unit-embedding gap {gap:.3g}; bit-equal rows "

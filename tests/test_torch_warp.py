@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from chip_smoke import fb8_lines, k2_case, k2_read_mask
+from facerec_torch.ops import kernels
 from facerec_torch.ops import warp_fast as tw
 from facerec_torch.ops.warp_kernel import line_taps, rotate_patches_kernel
 from facerec_tpu.ops import warp_fast as jw
@@ -184,10 +185,10 @@ def test_read_mask_at_angle_zero(p, e):
 
 def test_rotate_wrapper_on_cpu_is_plain_version():
     patches, angles, centers = _patch_case()
-    before = rotate_patches_kernel.launches
+    before = kernels.launches()
     a = rotate_patches_kernel(_t(patches), _t(angles), _t(centers), 96)
     b = tw.rotate_patches(_t(patches), _t(angles), _t(centers), 96)
-    assert rotate_patches_kernel.launches == before
+    assert kernels.launches() == before
     assert torch.equal(a, b)
 
 

@@ -136,10 +136,12 @@ def run(root: Path) -> dict:
 def _forced_launchers(root: Path, warps: list[int]) -> dict:
     """``nms_suppress_launch`` of an edited copy of the checkout's kernel
     source for each forced block size, all built at once."""
-    import ctypes
     import subprocess
 
     from facerec_torch import build
+    from facerec_torch.ops.kernels import TABLE
+
+    nms = TABLE["nms_suppress"]
 
     src = (root / "facerec_torch" / "csrc" / "nms_fixed_point.cu").read_text()
     if src.count(CLAMP) != 1:
@@ -158,11 +160,7 @@ def _forced_launchers(root: Path, warps: list[int]) -> dict:
         log, _ = proc.communicate()
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for the copy at {w} warps:\n{log}")
-        fn = ctypes.CDLL(str(lib)).nms_suppress_launch
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, p, i, i, ctypes.c_float, i, p, p, p]
-        fn.restype = i
-        launchers[w] = fn
+        launchers[w] = build.function(lib, nms.symbol, nms.argtypes)
     return launchers
 
 
@@ -170,7 +168,7 @@ def sweep(root: Path, warps: list[int]) -> list[dict]:
     import torch
 
     from facerec_torch import bench, build
-    from facerec_torch.multichip import record_nms
+    from facerec_torch.ops import kernels
     from facerec_torch.ops.nms import MODES, nms_suppress, nms_suppress_plain
 
     if not torch.cuda.is_available():
@@ -178,12 +176,13 @@ def sweep(root: Path, warps: list[int]) -> list[dict]:
     build.build()
     launchers = _forced_launchers(root, warps)
     pipe, frames = bench.prepare(device="cuda")
-    calls = record_nms(pipe, pipe.upload(frames))
+    with kernels.recording("nms_suppress") as calls, torch.no_grad():
+        pipe.detector.detect(pipe.upload(frames))
     if len(calls) != len(SITES):
         raise AssertionError(f"the detect made {len(calls)} nms calls, not {len(SITES)}")
     card = bench.card_label(pipe.device)
     rows = []
-    for site, (boxes, s0, valid, threshold, mode) in zip(SITES, calls):
+    for site, ((boxes, s0, valid, threshold, mode, _), _) in zip(SITES, calls):
         m, n = s0.shape
         ref = nms_suppress_plain(boxes, s0, valid, threshold, mode)
 
